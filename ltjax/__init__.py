@@ -1,12 +1,13 @@
-"""ltjax — TPU-native Lagrangian particle transport engine.
+"""ltjax — Lagrangian particle transport engine on JAX/XLA.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of LTRANS
-v.2b (the UMCES Larval TRANSport model, Fortran 90; see SURVEY.md for the
-full reference analysis).  Nothing here is a port: particle state is a
+A JAX/XLA implementation of the capabilities of LTRANS v.2b (the UMCES
+Larval TRANSport model, Fortran 90; see SURVEY.md for the full
+reference analysis).  Nothing here is a port: particle state is a
 sharded structure-of-arrays, every operator is a pure batched function
-``(state, fields) -> state``, the hot interpolation path is a fused
-gather kernel, and multi-chip scaling uses ``jax.sharding`` meshes with
-XLA collectives.
+``(state, fields) -> state``, the hot interpolation path gathers packed
+per-cell tables that XLA compiles for the accelerator (an NVIDIA GPU in
+production; the CPU in the tests), and multi-device scaling uses
+``jax.sharding`` meshes with XLA collectives.
 
 Reference parity map (LTRANS v2b file -> ltjax module):
   LTRANS.f90 (driver/time loop)        -> ltjax.step, ltjax.run

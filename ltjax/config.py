@@ -5,7 +5,7 @@ The reference declares ~80 module-level run parameters in
 from the Fortran namelist file ``LTRANS.data`` (SURVEY.md SS5.6).  We keep
 **the same parameter names** in a dataclass so the original run files load
 unmodified through :mod:`ltjax.namelist`, and add a handful of
-TPU-build-only knobs (dtypes, sharding, prefetch) in a separate section.
+engine-only knobs (dtypes, sharding, prefetch) in a separate section.
 """
 
 from __future__ import annotations
@@ -142,9 +142,10 @@ class Config:
     WriteParfile: bool = False
     BoundaryBLNs: bool = False
 
-    # --- TPU-build-only knobs (no reference analog) ----------------------
-    dtype_pos: str = "float64"    # particle position dtype ("float64" on CPU,
-                                  #   "float32" on TPU benches)
+    # --- engine-only knobs (no reference analog) -------------------------
+    dtype_pos: str = "float64"    # particle position dtype ("float64" for
+                                  #   reference comparisons, "float32" in
+                                  #   the benchmark cells)
     dtype_field: str = "float32"  # field gather/interpolation dtype
     tension_sigma: float = 0.0    # uniform dimensionless spline tension;
                                   #   <0 => adaptive (SIGS-like) selection
@@ -152,124 +153,6 @@ class Config:
                                   #   (ltjax.packed): time-collapse-first
                                   #   + per-column splines; False =>
                                   #   reference-ordered native path
-    kernel_interp: bool = True    # fused Pallas RK4 kernel for advection
-                                  #   (ltjax.kernels.gather_interp); auto-
-                                  #   engages on TPU with f32 positions on
-                                  #   a uniform grid, else falls back to
-                                  #   the packed path
-    kernel_block: int = 0         # particles per fused-kernel block;
-                                  #   0 (default) = AUTO from particle
-                                  #   density (step.resolve_kernel_block:
-                                  #   blocks sized to cover ~41 cells —
-                                  #   1024 at the 1M-bench 25/cell,
-                                  #   floor 256 for sparse runs whose
-                                  #   blocks would otherwise span
-                                  #   several windows).  Set > 0 to
-                                  #   override
-    kernel_precision: str = "pair2"  # MXU one-hot blend scheme/precision:
-                                  #   "pair2" = pair-packed rows +
-                                  #   bf16-exact row weights, 2 passes,
-                                  #   ~2^-16 value error + fy on the
-                                  #   1/256 lattice (default: fastest
-                                  #   exact-ish mode), "hilo3" = hi/lo
-                                  #   split bilinear, 3 passes, ~1.5e-5,
-                                  #   "highest" = f32-exact (6 passes),
-                                  #   "default" = one bf16 pass (~4e-3
-                                  #   rel; fast but weight sums lose
-                                  #   exactness)
-    kernel_wy: int = 16           # fused-kernel VMEM window cells (eta)
-    kernel_wx: int = 8            # fused-kernel VMEM window cells (xi);
-                                  #   wy*wx = 128 halves the one-hot
-                                  #   blend matmul passes vs 16x16 (the
-                                  #   dominant MXU cost); the Hilbert
-                                  #   sort coarsens eta by wy//wx so
-                                  #   blocks fit the window (measured
-                                  #   0.9% window misses at 1M vs 9.6%
-                                  #   with square-sorted blocks)
-    kernel_fast_math: bool = True # kernel divides via approx-reciprocal
-                                  #   + 2 Newton steps (~1-2 ulp of an
-                                  #   exact f32 divide)
-    kernel_sfast: bool = True     # constant-ladder s-space vertical
-                                  #   spline in the fused kernels on
-                                  #   affine-ladder grids (Cs==s or
-                                  #   hc==0; grid.affine_ladders) —
-                                  #   exactly equal to the z-space
-                                  #   scheme up to f32 rounding; False
-                                  #   forces the per-particle z-space
-                                  #   path everywhere
-    ext_fuse: int = 8             # external steps fused per compiled
-                                  #   call on the megakernel path (the
-                                  #   field window holds ext_fuse + 2
-                                  #   records); 1 = classic triple
-                                  #   buffer.  8 amortizes the ~26 ms
-                                  #   per-call dispatch to ~3 ms/ext
-                                  #   (output/checkpoint cadence still
-                                  #   clamps the chunk in run.py)
-    ext_sort_every: int = 2       # Hilbert re-sort cadence inside a
-                                  #   fused call [external steps].  The
-                                  #   row-packed sort costs ~15 ms at 1M;
-                                  #   blocks stay coherent over several
-                                  #   steps (bulk drift is tracked by the
-                                  #   kernel's window origins; turbulence
-                                  #   spreads a block < 0.1 cell per ext
-                                  #   step), so every-2 measures the same
-                                  #   window-miss rate as every-1 on the
-                                  #   bench flow.  Strongly sheared flows
-                                  #   can set 1; misses are never silent
-                                  #   (exact patch -> ERROR on overflow)
-    sort_depth_bands: int = 1     # >1: band the Hilbert sort by height
-                                  #   above the seabed (band-major key,
-                                  #   bands of sort_band_height metres,
-                                  #   top band open-ended).  For runs
-                                  #   with a PERSISTENT depth-stratified
-                                  #   shear population (standing stock
-                                  #   in the bottom log layer under a
-                                  #   moving water column): stable band
-                                  #   membership keeps blocks velocity-
-                                  #   coherent (host window sim: 2 bands
-                                  #   cut mean misses 4.7% -> 1.0% at
-                                  #   120 particles/cell).  NOT a fix
-                                  #   for a sinking front TRANSITING the
-                                  #   layer: transit bands are thin and
-                                  #   transient, and splitting density
-                                  #   makes Hilbert runs ragged — on-
-                                  #   chip transit tests overflow the
-                                  #   patch EARLIER with banding at
-                                  #   <=100 particles/cell.  Transit
-                                  #   runs should raise patch capacity
-                                  #   instead (oob_frac=16 absorbs the
-                                  #   whole front; see BASELINE.md).
-                                  #   1 = off (default); max 6
-    sort_band_height: float = 4.0 # metres above bottom per sort band
-    sort_band_log: bool = False   # log2-spaced bands instead of equal
-                                  #   slabs: boundaries at
-                                  #   sort_band_height * 2^k metres
-                                  #   (k = 0..n-2; lowest band below
-                                  #   sort_band_height).  The bottom
-                                  #   log layer's horizontal speed goes
-                                  #   as ln(height above bed), so
-                                  #   equal-log-height bands are
-                                  #   equal-speed bands — the right
-                                  #   split once particles LIVE inside
-                                  #   the layer (equal slabs only help
-                                  #   during the approach)
-    oob_frac: int = 0             # exact-recompute capacity for window
-                                  #   misses = numpar // oob_frac.
-                                  #   0 (default) = AUTO: derived from
-                                  #   the config by
-                                  #   step.resolve_oob_frac — base
-                                  #   n/32 (cheap: unused patch
-                                  #   chunks are cond-skipped),
-                                  #   raised for sinking-transit
-                                  #   configs (sink*dt >= 1 m/ext)
-                                  #   and settlement rim-deferral
-                                  #   flux (BASELINE.md sizing rules).
-                                  #   Set > 0 to override.  Capacity
-                                  #   must sit clearly above the peak
-                                  #   demand — overflow freezes
-                                  #   particles as ERROR, and frozen
-                                  #   stragglers feed back into more
-                                  #   misses; see ltjax.spatial sort
     reflect_iters: int = 4        # fixed boundary-reflection iteration count
     mesh_particles: int = 1       # mesh axis size: particle data-parallel
     mesh_tiles: int = 1           # mesh axis size: domain tiles (eta strips)
@@ -283,11 +166,9 @@ class Config:
 
     # ---------------------------------------------------------------------
     def needs_salt_fields(self) -> bool:
-        """Salt (and temp) fields/lanes are needed when sampling is on
-        OR a salinity-cued behavior (4/5) runs — the round-4 code keyed
-        everything on SaltTempOn alone, which crashed the megakernel at
-        trace time for Behavior 4/5 with SaltTempOn off and silently
-        zeroed the halocline cue on the XLA path."""
+        """Salt (and temp) fields are needed when sampling is on OR a
+        salinity-cued behavior (4/5) runs — keying them on SaltTempOn
+        alone silently zeroes the halocline cue."""
         return self.SaltTempOn or self.Behavior in (4, 5)
 
     @property
@@ -317,10 +198,8 @@ class Config:
             # oyster-larva ontogenetic migration (types 4/5) cues on the
             # vertical salinity gradient (behavior_module.f90, SURVEY.md
             # SS2.1 #8); without salt fields the cue is silently zero.
-            # (SaltTempOn is NOT required: needs_salt_fields() packs the
-            # salt lanes for the cue regardless of output sampling —
-            # the round-4 coupling crashed the megakernel at trace time
-            # for Behavior 4/5 with SaltTempOn off.)
+            # (SaltTempOn is NOT required: needs_salt_fields() loads the
+            # salt fields for the cue regardless of output sampling.)
             raise ValueError(
                 f"Behavior={self.Behavior} (salinity-cued ontogenetic "
                 "migration) requires readSalt — without salt fields "

@@ -20,8 +20,7 @@ class FieldSet(NamedTuple):
 
     ROMS files are (K, eta, xi); we transpose on ingest so a particle's
     water-column gather pulls one contiguous K-vector per corner node
-    (a row gather) instead of K strided element gathers — the layout
-    that makes the hot gather fast on TPU.  The eta axis is uniformly
+    (a row gather) instead of K strided element gathers.  The eta axis is uniformly
     axis 1 for every leaf, which is also what the domain-tile sharding
     slices (ltjax.shard).
     """
@@ -73,9 +72,8 @@ def stack_records(recs, t_base, dtype=jnp.float32,
     ``recs``: list of record dicts as produced by
     ltjax.io.roms.RomsSeries.next_record (ROMS ([K,] eta, xi) layout,
     host numpy or device arrays — the prefetcher device_puts them).
-    This is the (n_fuse + 2)-record window consumed by
-    ltjax.step.make_fused_external_steps; R = 3 reproduces the classic
-    triple buffer (``initHydro``/``updateHydro``, SURVEY.md SS3.3).
+    R = 3 is the classic triple buffer (``initHydro``/``updateHydro``,
+    SURVEY.md SS3.3).
     """
     def pile(key, klast=True):
         xs = jnp.stack([jnp.asarray(r[key], dtype) for r in recs])

@@ -3,7 +3,7 @@
 Reference: ``initGrid`` in hydrodynamic_module.f90 builds node arrays
 for the rho/u/v grids, forms quad elements, and searches for the
 element containing each particle (``setEle``/``gridcell()``,
-SURVEY.md SS2.1 #3/#4).  ROMS grids are *structured*, so the TPU-native
+SURVEY.md SS2.1 #3/#4).  ROMS grids are *structured*, so this
 design replaces element search entirely with index arithmetic
 (SURVEY.md SS7.1): cell location is a searchsorted (or a multiply for
 uniform grids) on the 1D coordinate axes — O(log n) with zero
@@ -47,14 +47,13 @@ class Grid(NamedTuple):
 
     ``uniform`` (static bool) marks exactly-uniform coordinate axes; the
     cell locate then becomes index arithmetic (one multiply) instead of
-    a searchsorted — searchsorted lowers to a serialized binary-search
-    loop on TPU and dominated the profile before this fast path.
+    a searchsorted (a per-query binary search).
 
     ``curv`` (CurvMap) marks a general curvilinear grid: the 1-D axes
     hold representative coordinates (middle row/column) for diagnostics
     only, and ALL cell location goes through ``logical_coords``
     (seed-raster + Newton inverse of the bilinear quad map) — the
-    TPU-native replacement of ``setEle``/``gridcell()``
+    vectorized replacement of ``setEle``/``gridcell()``
     (hydrodynamic_module.f90 / gridcell_module.f90, SURVEY.md SS2.1
     #3/#4 [conf: H]).
     """
@@ -225,7 +224,7 @@ def logical_coords(grid: Grid, x, y, iters: int = 3):
     ti in [0, nx-1]: floor(ti) is the containing rho cell, frac the
     bilinear fraction.  Seed from the raster, then ``iters`` Newton
     steps on the bilinear quad map; each step is 4 two-lane row
-    gathers + a 2x2 solve, fully vectorized (the TPU-native
+    gathers + a 2x2 solve, fully vectorized (the batched
     replacement of the reference's per-particle element walk,
     SURVEY.md SS7.1).  Out-of-mesh queries clamp to the rim cells
     (same contract as ``locate``).
@@ -336,8 +335,7 @@ def locate(coords: jax.Array, x: jax.Array, uniform: bool = False):
     reference's treatment of particles at the domain rim [conf: M]).
 
     uniform=True (static) replaces the searchsorted with index
-    arithmetic — searchsorted is a serialized binary-search loop on
-    TPU, and this is the hot path's first op.
+    arithmetic — this is the hot path's first op.
     """
     n = coords.shape[0]
     if uniform and n >= 2:
@@ -352,41 +350,6 @@ def locate(coords: jax.Array, x: jax.Array, uniform: bool = False):
     c1 = coords[i + 1]
     f = jnp.clip((x - c0) / (c1 - c0), 0.0, 1.0)
     return i.astype(jnp.int32), f
-
-
-def affine_ladders(grid: Grid):
-    """Fixed vertical knot ladders (L_r, L_w) when the s-coordinate
-    depths are an affine map of them, else None.
-
-    For both Vtransforms (scoord.s_depths, hydrodynamic_module.f90
-    ``getSlevel`` [conf: H]) the knot depths reduce to
-
-        z_k = zeta + (zeta + h) * L_k
-
-    with a FIXED ladder L whenever (a) Cs == s (identity stretching:
-    Vt1 ``z0 = hc*s + (h-hc)*Cs = h*s``; Vt2 ``s_ = (hc*s+h*Cs)/(hc+h)
-    = s``) with L = s, or (b) hc == 0 (both transforms collapse onto
-    the Cs curve) with L = Cs.  A tension spline with dimensionless
-    per-interval tension is invariant under affine reparametrization of
-    the knot axis (off/dia scale by the axis scale b, the rhs by 1/b,
-    z2 by 1/b^2, and the h^2*(z2*gs) evaluation term by b^2 * 1/b^2 —
-    see kernels.gather_interp._fit_thomas_multi/_eval_spline_multi), so
-    on such grids the whole vertical fit/eval can run in s-space with
-    compile-time-constant knots and Thomas factorization — the fused
-    kernels' "sfast" scheme.  General stretched ladders (hc > 0 and
-    Cs != s) mix two fixed ladders with a per-particle coefficient and
-    return None (per-particle z-space scheme).
-    """
-    s_r = np.asarray(grid.s_rho, np.float64)
-    cs_r = np.asarray(grid.Cs_r, np.float64)
-    s_w = np.asarray(grid.s_w, np.float64)
-    cs_w = np.asarray(grid.Cs_w, np.float64)
-    if (np.allclose(s_r, cs_r, rtol=0, atol=1e-12)
-            and np.allclose(s_w, cs_w, rtol=0, atol=1e-12)):
-        return s_r, s_w
-    if float(grid.hc) == 0.0:
-        return cs_r, cs_w
-    return None
 
 
 def song_haidvogel_cs(s, theta_s=0.0, theta_b=0.0):

@@ -6,8 +6,7 @@ containing quad element, per grid and time level) and ``polintd``
 hydrodynamic_module.f90 (SURVEY.md SS2.1 #3 [conf: H mechanisms]).
 
 Everything is batched over particles; gathers are plain advanced
-indexing that XLA lowers to dynamic-gather (the Pallas fused kernel in
-ltjax.kernels.gather_interp replaces the hot composite on TPU).
+indexing that XLA lowers to dynamic-gather.
 """
 
 from __future__ import annotations
@@ -34,8 +33,7 @@ def _flat_corners(shape, i, j):
 
     shape: the field's shape up to (..., Ny, Nx[, K]); i/j: (N,).
     Returns four (L, N) int32 index arrays (L = prod of leading axes),
-    suitable for a single leading-axis row gather — the only gather
-    form the TPU lowers at full speed.
+    suitable for a single leading-axis row gather.
     """
     ny, nx = shape[-2], shape[-1]
     lead = 1
@@ -69,8 +67,8 @@ def interp_columns(field, i, j, fx, fy):
     (..., N, K) vertical profiles at each particle (the reference's
     per-s-level getInterp loop inside WCTS_ITPI, vectorized).  Each
     corner is one contiguous K-row fetched by a flat leading-axis row
-    gather — the TPU-friendly form (strided multi-axis fancy indexing
-    lowers much worse).
+    gather (one contiguous row per corner instead of strided
+    multi-axis fancy indexing).
     """
     K = field.shape[-1]
     lead_shape = field.shape[:-3]

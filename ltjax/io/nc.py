@@ -2,9 +2,10 @@
 
 The reference links the NetCDF Fortran library and reads ROMS grid +
 history files with nf90_open/get_var (hydrodynamic_module.f90,
-SURVEY.md SS3.3).  This image has no netCDF4/xarray, so we shim both
-classic (CDF-1/2, via scipy.io.netcdf_file) and NetCDF4/HDF5 (via
-h5py), detected by magic bytes.  Hyperslab reads (one time record at a
+SURVEY.md SS3.3).  Without netCDF4/xarray we shim both classic
+(CDF-1/2: the C++ reader in ltjax.native, or scipy.io.netcdf_file) and
+NetCDF4/HDF5 (via h5py, imported only when such a file is opened),
+detected by magic bytes.  Hyperslab reads (one time record at a
 time) are first-class — that is what the streaming input pipeline
 needs, and per-host tile reads fall out of numpy basic slicing.
 """
@@ -39,7 +40,14 @@ class NCFile:
             self._kind = "cdf"
             self._f = netcdf_file(path, "r", mmap=True)
         elif magic[1:4] == b"HDF":
-            import h5py
+            try:
+                import h5py
+            except ImportError as e:
+                raise ImportError(
+                    f"{path} is NetCDF4 (HDF5); reading it needs the "
+                    "h5py package, which is not installed.  Convert the "
+                    "file to NetCDF3 (e.g. `nccopy -k 64-bit-offset`) or "
+                    "install h5py.") from e
             self._kind = "hdf"
             self._f = h5py.File(path, "r")
         else:
@@ -84,7 +92,7 @@ class NCFile:
         """
         es = slice(*eta_slice) if eta_slice is not None else slice(None)
         if self._kind == "native":
-            out = self._f.read(name, index, dtype=dtype or "float64")
+            out = self._f.read(name, index, dtype=dtype)
             if eta_slice is not None and out.ndim >= 2:
                 out = out[..., es, :]
         elif self._kind == "cdf":

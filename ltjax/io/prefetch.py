@@ -1,7 +1,7 @@
 """Async host->device field prefetch.
 
 Reference: the synchronous ``updateHydro`` NetCDF read stalls compute
-every external step (SURVEY.md SS3.3); the TPU-native replacement is a
+every external step (SURVEY.md SS3.3); the replacement here is a
 double-buffered background thread that reads the next time record and
 stages it on device while the current external step runs
 (BASELINE.json north_star "async host-side prefetch pipeline").

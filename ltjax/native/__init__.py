@@ -1,6 +1,6 @@
 """Native (C++) runtime components.
 
-The compute path is JAX/XLA/Pallas; the host runtime around it uses
+The compute path is JAX/XLA; the host runtime around it uses
 C++ where the reference's runtime is native (the whole reference is
 Fortran — SURVEY.md SS2): here, the NetCDF3 record reader that feeds
 the streaming input pipeline without holding the Python GIL.
@@ -30,13 +30,16 @@ def _build() -> bool:
         if (os.path.exists(_SO)
                 and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
             return True
+        # per-process temporary: concurrent first imports (test
+        # workers) each build their own and the atomic rename settles
+        tmp = f"{_SO}.{os.getpid()}.tmp"
         r = subprocess.run(
             ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-             "-o", _SO + ".tmp", _SRC],
+             "-o", tmp, _SRC],
             capture_output=True, timeout=120)
         if r.returncode != 0:
             return False
-        os.replace(_SO + ".tmp", _SO)
+        os.replace(tmp, _SO)
         return True
     except Exception:
         return False
@@ -71,6 +74,8 @@ def get_lib():
         lib.ltnc_var_ndims.argtypes = [ctypes.c_void_p, ctypes.c_int]
         lib.ltnc_var_isrec.restype = ctypes.c_int
         lib.ltnc_var_isrec.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.ltnc_var_type.restype = ctypes.c_int
+        lib.ltnc_var_type.argtypes = [ctypes.c_void_p, ctypes.c_int]
         lib.ltnc_var_shape.argtypes = [
             ctypes.c_void_p, ctypes.c_int,
             ctypes.POINTER(ctypes.c_longlong)]
@@ -123,7 +128,9 @@ class NativeCDF:
     def num_records(self, name):
         return self.dims(name)[0]
 
-    def read(self, name, index=None, dtype="float64"):
+    def read(self, name, index=None, dtype=None):
+        """float32 / float64 when ``dtype`` asks for it; otherwise the
+        variable's own integer type, or float64 for float variables."""
         np = self._np
         vid = self._names[name]
         shape = self.dims(name)
@@ -141,6 +148,11 @@ class NativeCDF:
             self._h, vid, rec, out.ctypes.data_as(ctypes.c_void_p), want)
         if n != out.size:
             raise OSError(f"{self.path}:{name}: native read failed")
+        if dtype is None:
+            itype = {1: np.int8, 2: np.uint8, 3: np.int16, 4: np.int32}.get(
+                self._lib.ltnc_var_type(self._h, vid))
+            if itype is not None:
+                out = out.astype(itype)
         if index is not None and not isrec:
             return out[index]
         return out

@@ -1,6 +1,6 @@
 // Minimal NetCDF3 classic (CDF-1/CDF-2) reader with a C ABI.
 //
-// TPU-native analog of the reference's NetCDF Fortran input layer
+// Analog of the reference's NetCDF Fortran input layer
 // (hydrodynamic_module.f90 initHydro/updateHydro, SURVEY.md SS3.3):
 // the streaming input pipeline needs one-record hyperslab reads that
 // run OFF the Python GIL so the host prefetch thread genuinely
@@ -316,6 +316,14 @@ int ltnc_var_isrec(void* h, int vid) {
   auto* f = static_cast<File*>(h);
   if (vid < 0 || vid >= (int)f->vars.size()) return -1;
   return f->vars[vid].record ? 1 : 0;
+}
+
+// NetCDF external type code (1 byte, 2 char, 3 short, 4 int,
+// 5 float, 6 double)
+int ltnc_var_type(void* h, int vid) {
+  auto* f = static_cast<File*>(h);
+  if (vid < 0 || vid >= (int)f->vars.size()) return -1;
+  return f->vars[vid].type;
 }
 
 // shape with the record dim resolved to numrecs

@@ -7,25 +7,93 @@ model_time, lon, lat, depth, color (status code), optional salt/temp/
 age/settle-polygon, plus hitLand/hitBottom when TrackCollisions is on.
 
 Scale design (the reference's writeOutput appends incrementally; so do
-we): the NetCDF path streams each snapshot into an HDF5 file
-(NetCDF4's container format) through resizable datasets — O(1) host
-memory regardless of run length, chunked (1, particle) so a snapshot
-append is one contiguous write.  The CSV path formats whole columns
-via numpy (``np.savetxt``), not a per-particle Python loop; at 1M
-particles a snapshot formats in ~1 s instead of ~30 s.  Readers:
-ltjax.io.nc.NCFile reads both this HDF5 layout and classic NetCDF3.
+we): the NetCDF path writes NetCDF3 64-bit-offset files (CDF-2, scipy)
+and appends each snapshot as one record along the unlimited ``time``
+dimension — O(1) host memory regardless of run length, and a snapshot
+append is one contiguous write at the end of the file.  The CSV path
+formats whole columns via numpy (``np.savetxt``), not a per-particle
+Python loop.  Readers: ltjax.io.nc.NCFile.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+import struct
 
 import numpy as np
 
 from .. import convert
 from ..config import Config
 from ..state import Particles
+
+
+def _typecode(arr: np.ndarray) -> str:
+    return {"f8": "d", "i4": "i"}[f"{arr.dtype.kind}{arr.dtype.itemsize}"]
+
+
+class RecordFile:
+    """A NetCDF3 64-bit-offset file with dims (time: unlimited,
+    particle) that grows one record at a time.
+
+    The first :meth:`append` writes the header, the fixed ``(particle,)``
+    variables and record 0 through scipy; later ones write the record's
+    bytes (big-endian, in the header's variable order) at the end of
+    the file and then raise the header's record count.  Record values
+    are float64 or int32 arrays of shape (particle,), or scalars.
+    """
+
+    def __init__(self, path: str, n_particles: int, fixed: dict,
+                 attrs: dict):
+        self.path = path
+        self.n = n_particles
+        self.fixed = fixed
+        self.attrs = attrs
+        self.n_records = 0
+        self._order = None      # record variable names in file order
+        self._end = 0           # byte offset where the next record goes
+
+    def append(self, rec: dict):
+        if self._order is None:
+            self._create(rec)
+            return
+        with open(self.path, "r+b") as f:
+            f.seek(self._end)
+            for name in self._order:
+                arr = np.asarray(rec[name])
+                f.write(arr.astype(arr.dtype.newbyteorder(">")).tobytes())
+            self._end = f.tell()
+            # data first, then the count that makes it visible
+            self.n_records += 1
+            f.seek(4)
+            f.write(struct.pack(">i", self.n_records))
+
+    def _create(self, rec: dict):
+        from scipy.io import netcdf_file
+
+        f = netcdf_file(self.path, "w", version=2)
+        try:
+            for k, v in self.attrs.items():
+                setattr(f, k, v)
+            f.createDimension("time", None)
+            f.createDimension("particle", self.n)
+            for name, arr in self.fixed.items():
+                arr = np.asarray(arr)
+                f.createVariable(name, _typecode(arr),
+                                 ("particle",))[:] = arr
+            for name, arr in rec.items():
+                arr = np.asarray(arr)
+                dims = ("time",) if arr.ndim == 0 else ("time", "particle")
+                f.createVariable(name, _typecode(arr), dims)[0] = arr
+            f.flush()
+            # header position of each record variable's entry: the
+            # header lists them in the order their data is interleaved
+            hdr = {name: v._begin for name, v in f.variables.items()
+                   if v.isrec}
+        finally:
+            f.close()
+        self._order = sorted(hdr, key=hdr.get)
+        self._end = os.path.getsize(self.path)   # records run to the end
+        self.n_records = 1
 
 
 class TrajectoryWriter:
@@ -36,7 +104,7 @@ class TrajectoryWriter:
         self.tag = shard_tag
         os.makedirs(cfg.outpath, exist_ok=True)
         self._csv = None
-        self._nc = None           # h5py.File, created on first snapshot
+        self._nc = None           # RecordFile, created on first snapshot
         self._nt = 0
         if cfg.writeCSV:
             self._csv = open(os.path.join(
@@ -65,55 +133,6 @@ class TrajectoryWriter:
         return np.asarray(lon), np.asarray(lat)
 
     # ------------------------------------------------------------------
-    def _nc_open(self, n_particles: int, pid: np.ndarray):
-        import h5py
-        cfg = self.cfg
-        path = os.path.join(cfg.outpath, cfg.NCOutFile + self.tag + ".nc")
-        f = h5py.File(path, "w")
-        f.attrs["title"] = cfg.RunName
-        f.attrs["run_by"] = cfg.RunBy
-        f.attrs["institution"] = cfg.Institution
-        f.attrs["source"] = "ltjax (TPU-native LTRANS v2b rebuild)"
-        chunk = (1, n_particles)
-
-        def mk(name, dtype):
-            f.create_dataset(name, shape=(0, n_particles),
-                             maxshape=(None, n_particles), dtype=dtype,
-                             chunks=chunk)
-        f.create_dataset("model_time", shape=(0,), maxshape=(None,),
-                         dtype=np.float64, chunks=(1024,))
-        f.create_dataset("pid", data=pid)
-        if self.tag:
-            # per-host shard files: slot occupancy changes as particles
-            # migrate between hosts, so pid is a per-snapshot dataset
-            # (EMPTY slots carry color < 0; merge_shards filters them)
-            mk("pid_t", np.int32)
-        mk("lon", np.float64)
-        mk("lat", np.float64)
-        mk("depth", np.float64)
-        mk("color", np.int32)
-        mk("age", np.float64)
-        mk("settle_poly", np.int32)
-        if cfg.SaltTempOn:
-            mk("salt", np.float64)
-            mk("temp", np.float64)
-        if cfg.TrackCollisions:
-            mk("hitLand", np.int32)
-            mk("hitBottom", np.int32)
-        self._nc = f
-
-    def _nc_append(self, t: float, fields: dict):
-        f = self._nc
-        k = self._nt
-        f["model_time"].resize((k + 1,))
-        f["model_time"][k] = t
-        for name, arr in fields.items():
-            ds = f[name]
-            ds.resize((k + 1, ds.shape[1]))
-            ds[k, :] = arr
-        self._nt += 1
-
-    # ------------------------------------------------------------------
     def snapshot(self, t: float, p: Particles):
         cfg = self.cfg
         lon, lat = self._to_lonlat(p)
@@ -132,13 +151,25 @@ class TrajectoryWriter:
 
         if cfg.writeNC:
             if self._nc is None:
-                self._nc_open(len(lon), pid)
-            fields = {"lon": lon, "lat": lat, "depth": depth,
-                      "color": status, "age": age, "settle_poly": poly}
+                self._nc = RecordFile(
+                    os.path.join(cfg.outpath,
+                                 cfg.NCOutFile + self.tag + ".nc"),
+                    len(lon), {"pid": pid},
+                    {"title": cfg.RunName, "run_by": cfg.RunBy,
+                     "institution": cfg.Institution,
+                     "source": "ltjax (LTRANS v2b rebuild on JAX)"})
+            rec = {"model_time": np.float64(t), "lon": lon, "lat": lat,
+                   "depth": depth, "color": status, "age": age,
+                   "settle_poly": poly}
             if self.tag:
-                fields["pid_t"] = pid
-            fields.update(extra)
-            self._nc_append(float(t), fields)
+                # per-host shard files: slot occupancy changes as
+                # particles migrate between hosts, so pid is a
+                # per-snapshot variable (EMPTY slots carry color < 0;
+                # merge_shards filters them)
+                rec["pid_t"] = pid
+            rec.update(extra)
+            self._nc.append(rec)
+            self._nt += 1
 
         if self._csv is not None:
             cols = [np.full(len(lon), float(t)), pid, lon, lat, depth,
@@ -159,9 +190,7 @@ class TrajectoryWriter:
         if self._csv is not None:
             self._csv.close()
             self._csv = None
-        if self._nc is not None:
-            self._nc.close()
-            self._nc = None
+        self._nc = None
 
 
 def merge_shards(shard_paths, out_path):
@@ -170,55 +199,46 @@ def merge_shards(shard_paths, out_path):
     Shard files (TrajectoryWriter(shard_tag=...)) hold fixed-length
     per-host slot rows with per-snapshot ``pid_t`` and EMPTY slots as
     ``color < 0``.  The merged file has the single-process layout:
-    fixed ``pid`` (sorted union) + (time, particle) datasets.
+    fixed ``pid`` (sorted union) + (time, particle) variables.
     """
-    import h5py
+    from ..io.nc import NCFile, write_netcdf
 
-    fs = [h5py.File(p, "r") for p in shard_paths]
+    fs = [NCFile(p) for p in shard_paths]
     try:
-        times = np.asarray(fs[0]["model_time"])
+        times = fs[0].read("model_time")
         for f in fs[1:]:
-            np.testing.assert_allclose(np.asarray(f["model_time"]), times)
-        names = [n for n in fs[0].keys()
+            np.testing.assert_allclose(f.read("model_time"), times)
+        names = [n for n in fs[0].variables()
                  if n not in ("model_time", "pid", "pid_t")]
+        pid_t = np.concatenate([f.read("pid_t") for f in fs], axis=1)
+        keep = np.concatenate([f.read("color") for f in fs], axis=1) >= 0
         # global pid set: union over ALL snapshots (a pid may be absent
         # at snapshot 0 — late release into a migrated-away slot — or
-        # vanish later via a migration drop; the old snapshot-0-only
-        # union crashed on an all-empty first snapshot and silently
-        # aliased unseen pids onto row 0 — advisor finding r4-low)
-        pid_parts = []
-        for f in fs:
-            pt = np.asarray(f["pid_t"])
-            col = np.asarray(f["color"])
-            pid_parts.append(pt[col >= 0])
-        pids = (np.unique(np.concatenate(pid_parts))
-                if pid_parts and sum(a.size for a in pid_parts)
-                else np.zeros(0, np.int64))
+        # vanish later via a migration drop; an all-empty first
+        # snapshot must not crash, and unseen pids must not alias onto
+        # row 0)
+        pids = np.unique(pid_t[keep])
         npar = int(pids.shape[0])
-        with h5py.File(out_path, "w") as out:
-            out.create_dataset("model_time", data=times)
-            out.create_dataset("pid", data=pids.astype(np.int32))
-            dsets = {n: out.create_dataset(
-                n, shape=(len(times), npar), dtype=fs[0][n].dtype)
-                for n in names}
-            if npar == 0:
-                return
-            lookup = np.full(int(pids.max()) + 2, -1, np.int64)
-            lookup[pids] = np.arange(npar)
-            for k in range(len(times)):
-                pid_k = np.concatenate([np.asarray(f["pid_t"][k])
-                                        for f in fs])
-                keep = np.concatenate([np.asarray(f["color"][k])
-                                       for f in fs]) >= 0
-                rows = lookup[pid_k[keep]]
-                assert (rows >= 0).all(), "shard pid outside the union"
-                for n in names:
-                    col = np.concatenate([np.asarray(f[n][k]) for f in fs])
-                    # pids absent at snapshot k (not yet in any shard /
-                    # dropped) keep the dataset's zero fill
-                    buf = np.zeros(npar, fs[0][n].dtype)
-                    buf[rows] = col[keep]
-                    dsets[n][k, :] = buf
+        if npar == 0:
+            write_netcdf(out_path, {"time": None},
+                         {"model_time": (("time",), times)})
+            return
+        lookup = np.full(int(pids.max()) + 2, -1, np.int64)
+        lookup[pids] = np.arange(npar)
+        out = RecordFile(out_path, npar, {"pid": pids.astype(np.int32)},
+                         {})
+        for k in range(len(times)):
+            rows = lookup[pid_t[k][keep[k]]]
+            assert (rows >= 0).all(), "shard pid outside the union"
+            rec = {"model_time": np.float64(times[k])}
+            for n in names:
+                col = np.concatenate([f.read(n, k) for f in fs])
+                # pids absent at snapshot k (not yet in any shard /
+                # dropped) keep a zero fill
+                buf = np.zeros(npar, col.dtype)
+                buf[rows] = col[keep[k]]
+                rec[n] = buf
+            out.append(rec)
     finally:
         for f in fs:
             f.close()

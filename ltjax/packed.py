@@ -1,16 +1,13 @@
-"""Packed-table fast interpolation path (TPU gather-optimized).
+"""Packed-table fast interpolation path (gather-optimized).
 
 Reference semantics (SURVEY.md SS3.2, ``find_currents``): per time
 record, horizontal bilinear of every s-level; vertical tension spline
 of the blended profile; quadratic time interpolation last.
 
-The TPU memory system serves *row gathers* at a fixed row rate
-(~0.4 G rows/s on v5e, measured; independent of row width up to 128
-lanes) — so the native path's ~12 row-gather sets + per-particle
-spline fits per internal step are gather-count-bound.  This module
-reformulates the interpolation to minimize gathered rows per
-particle-step, using two exact identities and one standard scheme
-choice:
+The native path gathers ~12 row sets and fits a spline per particle in
+every RK4 stage.  This module reformulates the interpolation to gather
+fewer, wider rows per particle-step, using two exact identities and
+one standard scheme choice:
 
 1. **Time-collapse first** (exact commute): the quadratic Lagrange
    time interpolation is linear with scalar coefficients shared by all
@@ -65,15 +62,8 @@ from .scoord import s_depths
 class PackedRecords(NamedTuple):
     """Per-record packed cell tables (built once per external step)."""
     tab: jax.Array      # (3, C, L) value lanes only (no z2 yet):
-                        #   [u us | v us | w ws | zeta | h [| aks ws]
-                        #    [| salt us | temp us]] — the optional
-                        #   trailing aks lanes feed the in-kernel
-                        #   Visser turbulence path; the salt/temp lanes
-                        #   feed in-kernel SaltTempOn sampling and the
-                        #   salinity-cued behaviors (4/5)
+                        #   [u us | v us | w ws | zeta | h]
     times: jax.Array    # (3,)
-    with_aks: bool = False  # static: aks lanes present
-    with_scalars: bool = False  # static: salt/temp lanes present
 
 
 class StageTable(NamedTuple):
@@ -118,15 +108,10 @@ def half_lanes(us: int, ws: int) -> int:
     return ((need + 63) // 64) * 64
 
 
-def build_packed_records(grid: Grid, fields: FieldSet,
-                         with_aks: bool = False,
-                         with_scalars: bool = False) -> PackedRecords:
+def build_packed_records(grid: Grid, fields: FieldSet) -> PackedRecords:
     """Dense per-record packing (jit; grid-sized work).
 
-    Collocates u, v onto rho points and concatenates value lanes;
-    with_aks appends the ws Aks lanes after h; with_scalars appends the
-    us salt + us temp lanes after those (indices of the nv core lanes
-    are unchanged).
+    Collocates u, v onto rho points and concatenates value lanes.
     """
     u = _collocate_u(fields.u)                     # (3, Ny, Nx, us)
     v = _collocate_v(fields.v, grid.ny)            # (3, Ny, Nx, us)
@@ -134,17 +119,10 @@ def build_packed_records(grid: Grid, fields: FieldSet,
     z = fields.zeta[..., None]                     # (3, Ny, Nx, 1)
     h = jnp.broadcast_to(grid.h.astype(u.dtype)[None, ..., None],
                          z.shape)
-    parts = [u, v, w, z, h]
-    if with_aks:
-        parts.append(fields.aks.astype(u.dtype))
-    if with_scalars:
-        parts.append(fields.salt.astype(u.dtype))
-        parts.append(fields.temp.astype(u.dtype))
-    tab = jnp.concatenate(parts, axis=-1)
+    tab = jnp.concatenate([u, v, w, z, h], axis=-1)
     three, ny, nx, L = tab.shape
     tab = tab.reshape(three, ny * nx, L)
-    return PackedRecords(tab=tab, times=fields.times, with_aks=with_aks,
-                         with_scalars=with_scalars)
+    return PackedRecords(tab=tab, times=fields.times)
 
 
 def _knots(zeta, h, s, cs, hc, vtransform):
@@ -343,46 +321,36 @@ def rk4_displacement_packed(grid: Grid, tables, x, y, z, sigma: float,
 
 
 class ValueTable(NamedTuple):
-    """One time-collapsed values-only table for the Pallas kernel path.
+    """One time-collapsed values-only table (blend-then-fit scheme).
 
-    ``zh_rows`` are the 8-lane pair rows for zeta/h-only lookups;
-    ``full`` is the f32 table the kernels window-DMA (any bf16
-    decomposition for the MXU happens in-kernel, see
-    kernels.gather_interp.blend_dot_fn).
+    ``zh_rows`` are the 8-lane pair rows for zeta/h-only lookups.
     """
-    full: jax.Array   # (Ny, Nx, HL) f32 value lanes [u|v|w|zeta|h|pad]
+    full: jax.Array   # (Ny, Nx, nv) value lanes [u|v|w|zeta|h]
     zh_rows: jax.Array  # (Ny*Nx, 8) pair rows [zeta,h,0,0]x2
     t: jax.Array
 
 
 def collapse_stage_values(grid: Grid, rec: PackedRecords, t) -> ValueTable:
     """Time-collapse to stage time t, values only (no spline fits —
-    the kernel fits per particle on the blended profile, the native
+    the consumer fits per particle on the blended profile, the native
     vertical scheme)."""
     us, ws = grid.us, grid.ws
     tt = jnp.asarray(t, rec.times.dtype)
-    vals = polintd(rec.tab, rec.times, tt)        # (C, ntot)
+    vals = polintd(rec.tab, rec.times, tt)        # (C, nv)
     nv = n_value_lanes(us, ws)
-    ntot = vals.shape[-1]
-    # pad to a 128-lane multiple: HBM minor-dim tiling requirement of
-    # the fused kernel's window DMA (kernels/gather_interp)
-    HL = ((ntot + 127) // 128) * 128
-    C = vals.shape[0]
-    vals = jnp.concatenate(
-        [vals, jnp.zeros((C, HL - ntot), vals.dtype)], axis=-1)
     zeta = vals[:, nv - 2]
     h = vals[:, nv - 1]
     zh = jnp.stack([zeta, h, jnp.zeros_like(zeta), jnp.zeros_like(zeta)],
                    axis=-1)
     zh_rows = jnp.concatenate([zh, jnp.roll(zh, -1, axis=0)], axis=-1)
-    shape = (grid.ny, grid.nx, HL)
+    shape = (grid.ny, grid.nx, nv)
     return ValueTable(full=vals.reshape(shape), zh_rows=zh_rows, t=tt)
 
 
 def _fit_eval_profile(grid: Grid, prof_u, prof_v, prof_w, zeta_p, h_p, z,
                       sigma: float):
     """Blend-then-fit vertical scheme on blended profiles (the native
-    reference ordering; exact XLA mirror of the kernel's in-VMEM math).
+    reference ordering).
 
     prof_u/v: (..., us); prof_w: (..., ws); zeta_p/h_p/z: (...,).
     """
@@ -407,8 +375,7 @@ def find_currents_collapsed(grid: Grid, vt: ValueTable, x, y, z,
     """Blend-then-fit currents from a values table (XLA path).
 
     This is the exact reference-ordered vertical scheme on the
-    time-collapsed table — the oracle for (and fallback of) the Pallas
-    kernel.
+    time-collapsed table.
     """
     dtype = x.dtype
     us, ws = grid.us, grid.ws
@@ -424,7 +391,7 @@ def find_currents_collapsed(grid: Grid, vt: ValueTable, x, y, z,
     fxd = fx.astype(flat.dtype)[:, None]
     fyd = fy.astype(flat.dtype)[:, None]
     blended = ((r00 * (1 - fxd) + r01 * fxd) * (1 - fyd)
-               + (r10 * (1 - fxd) + r11 * fxd) * fyd)      # (N, HL)
+               + (r10 * (1 - fxd) + r11 * fxd) * fyd)      # (N, nv)
     zeta_p = blended[:, nv - 2]
     h_p = blended[:, nv - 1]
     u, v, w, z_r0 = _fit_eval_profile(
@@ -444,7 +411,7 @@ def find_currents_collapsed(grid: Grid, vt: ValueTable, x, y, z,
 
 def rk4_displacement_collapsed(grid: Grid, vtabs, x, y, z, sigma: float,
                                z0m: float, idt: float):
-    """RK4 from 3 values tables, blend-then-fit scheme (kernel mirror)."""
+    """RK4 from 3 values tables, blend-then-fit scheme."""
     t1, t2, t4 = vtabs
     dt = jnp.asarray(idt, x.dtype)
     half = 0.5 * dt
@@ -468,8 +435,7 @@ class RecordsFlat(NamedTuple):
     Built ONCE per external step; per internal step the consumer
     gathers 4 corner rows and applies polintd per particle — the exact
     same per-corner arithmetic as collapse_stage_values + gather, with
-    no grid-sized work inside the step scan (the oob-patch path of the
-    external-step megakernel runs this on small subsets).
+    no grid-sized work inside the step scan.
     """
     rows: jax.Array    # (C, 3*nv)
     times: jax.Array   # (3,)
@@ -502,7 +468,7 @@ def find_currents_records(grid: Grid, rft: RecordsFlat, x, y, z, t,
     nx = grid.nx
     c00 = j.astype(jnp.int32) * nx + i.astype(jnp.int32)
     rows = rft.rows
-    nt = rows.shape[-1] // 3          # record stride (nv [+ ws aks])
+    nt = rows.shape[-1] // 3          # record stride (nv)
     r00 = rows[c00]
     r01 = rows[c00 + 1]
     r10 = rows[c00 + nx]
@@ -604,225 +570,14 @@ def zeta_h_records(grid: Grid, rft: RecordsFlat, x, y, t):
     return zeta_p.astype(dtype), h_p.astype(dtype)
 
 
-def build_record_tables(grid: Grid, rec: PackedRecords,
-                        paired: bool = False) -> jax.Array:
-    """(3, Ny, Nx, HL) f32 raw record value tables for the external-step
-    kernel (ltjax.kernels.ext_step) — no time collapse (the kernel
-    collapses its VMEM windows per stage), lanes padded to a
-    128-multiple (window-DMA minor-dim tiling requirement).
-
-    ``paired``: row (j, i) carries [cell (j,i) lanes | cell (j,i+1)
-    lanes] (the east x-corner; the last column pairs with itself).
-    This feeds the "pair2" blend scheme (ltjax.kernels.gather_interp):
-    the one-hot matmul then selects/fy-blends ROWS only and delivers
-    BOTH x-corners per pass — for us=20 the 63 value lanes were padded
-    to a 128-lane MXU output tile anyway, so the east corner rides in
-    otherwise-wasted M columns.
-    """
-    tab = rec.tab.astype(jnp.float32)                 # (3, C, ntot)
-    three, C, L = tab.shape
-    if paired:
-        t3 = tab.reshape(three, grid.ny, grid.nx, L)
-        east = jnp.concatenate([t3[:, :, 1:], t3[:, :, -1:]], axis=2)
-        tab = jnp.concatenate([t3, east], axis=-1).reshape(three, C, 2 * L)
-        L = 2 * L
-    HL = ((L + 127) // 128) * 128
-    pad = jnp.zeros((three, C, HL - L), jnp.float32)
-    return jnp.concatenate([tab, pad], axis=-1).reshape(
-        three, grid.ny, grid.nx, HL)
-
-
-def build_record_tables_split(grid: Grid, rec: PackedRecords):
-    """(main, aux) paired record tables for the AUX-SPLIT megakernel.
-
-    Packing the Aks / salt / temp lanes INTO the main record tables
-    pushes the paired row width past 128 lanes (e.g. 2*(63+21) = 168
-    -> HL 256 for Aks alone), which forces 8-aligned window DMA
-    origins, a 16x16 window, and ~3x the blend MXU flops — the
-    measured 0.50x turb / 0.45x salt vs-advect tax (BASELINE.md).  The
-    consumers only need these PROFILES once or twice per internal step
-    (Visser + the salinity cue at the stage-1 position; SaltTempOn
-    sampling at the post-step column), so the kernel gathers them from
-    a SEPARATE paired table with one small pair_dot per use — and the
-    main tables stay at HL 128 (16x8 window, 1x blend).  Even Aks AND
-    salt+temp together fit one aux table: (21 + 40) paired = 122
-    lanes.
-    """
-    nv = n_value_lanes(grid.us, grid.ws)
-    assert rec.with_aks or rec.with_scalars
-    main = PackedRecords(tab=rec.tab[..., :nv], times=rec.times)
-    aux = PackedRecords(tab=rec.tab[..., nv:], times=rec.times)
-    return (build_record_tables(grid, main, paired=True),
-            build_record_tables(grid, aux, paired=True))
-
-
 def stage_value_tables(grid: Grid, rec: PackedRecords, t, idt: float):
-    """The 3 RK4 stage values tables for the kernel path."""
+    """The 3 RK4 stage values tables (blend-then-fit scheme)."""
     tdt = rec.times.dtype
     tt = jnp.asarray(t, tdt)
     return (collapse_stage_values(grid, rec, tt),
             collapse_stage_values(grid, rec,
                                   tt + jnp.asarray(0.5 * idt, tdt)),
             collapse_stage_values(grid, rec, tt + jnp.asarray(idt, tdt)))
-
-
-class ValueTablesAll(NamedTuple):
-    """ALL stage-value tables of one external step, stacked.
-
-    Stage times are t0 + (idt/2)*k for k = 0 .. 2*n_int (consecutive
-    internal steps share their boundary time, so S = 2*n_int + 1
-    distinct tables instead of 3*n_int).  Built ONCE per external step
-    so the megakernel's exact-recompute patch does NO grid-sized work
-    inside its internal-step scan — the per-step table builds were
-    ~2/3 of the patch cost (measured 52.6 -> ~25 ms per external step
-    at 1M particles / cap 15.6k).
-    """
-    full: jax.Array      # (S, Ny, Nx, HL)
-    zh_rows: jax.Array   # (S, Ny*Nx, 8)
-    t0: jax.Array
-    idt: float
-
-
-def stage_value_tables_all(grid: Grid, rec: PackedRecords, t0,
-                           idt: float, n_int: int) -> ValueTablesAll:
-    """Stack collapse_stage_values over every stage time of the
-    external step (one fused linear-combination pass over the records;
-    the downstream per-step consumers dynamic-slice three tables)."""
-    S = 2 * n_int + 1
-    tdt = rec.times.dtype
-    ts = (jnp.asarray(t0, tdt)
-          + jnp.arange(S, dtype=tdt) * jnp.asarray(0.5 * idt, tdt))
-    tt = rec.times
-    t0r, t1r, t2r = tt[0], tt[1], tt[2]
-    l0 = (ts - t1r) * (ts - t2r) / ((t0r - t1r) * (t0r - t2r))
-    l1 = (ts - t0r) * (ts - t2r) / ((t1r - t0r) * (t1r - t2r))
-    l2 = (ts - t0r) * (ts - t1r) / ((t2r - t0r) * (t2r - t1r))
-    coef = jnp.stack([l0, l1, l2], axis=-1).astype(rec.tab.dtype)  # (S,3)
-    vals = jnp.einsum("sr,rcl->scl", coef, rec.tab)      # (S, C, ntot)
-    us, ws = grid.us, grid.ws
-    nv = n_value_lanes(us, ws)
-    ntot = vals.shape[-1]
-    HL = ((ntot + 127) // 128) * 128
-    C = vals.shape[1]
-    vals = jnp.concatenate(
-        [vals, jnp.zeros((S, C, HL - ntot), vals.dtype)], axis=-1)
-    zeta = vals[:, :, nv - 2]
-    h = vals[:, :, nv - 1]
-    zh = jnp.stack([zeta, h, jnp.zeros_like(zeta), jnp.zeros_like(zeta)],
-                   axis=-1)                                 # (S, C, 4)
-    zh_rows = jnp.concatenate([zh, jnp.roll(zh, -1, axis=1)], axis=-1)
-    return ValueTablesAll(
-        full=vals.reshape(S, grid.ny, grid.nx, HL), zh_rows=zh_rows,
-        t0=jnp.asarray(t0, tdt), idt=float(idt))
-
-
-def slice_stage_tables(vt_all: ValueTablesAll, i):
-    """The (t1, t2, t4) ValueTables of internal step ``i`` (traced ok:
-    dynamic slices of the stacked tables — ~60 MB/step of copies vs
-    the ~1 ms/step rebuild they replace)."""
-    k0 = 2 * jnp.asarray(i, jnp.int32)
-
-    def tab(k):
-        full = jax.lax.dynamic_index_in_dim(vt_all.full, k0 + k, 0,
-                                            keepdims=False)
-        zh = jax.lax.dynamic_index_in_dim(vt_all.zh_rows, k0 + k, 0,
-                                          keepdims=False)
-        t = vt_all.t0 + (k0 + k).astype(vt_all.t0.dtype) * jnp.asarray(
-            0.5 * vt_all.idt, vt_all.t0.dtype)
-        return ValueTable(full=full, zh_rows=zh, t=t)
-
-    return tab(0), tab(1), tab(2)
-
-
-def _find_currents_rows(grid: Grid, flat, base, x, y, z, sigma: float,
-                        z0m: float):
-    """find_currents_collapsed gathering from a flat (M, HL) row array
-    at row offset ``base`` (a traced scalar) — lets per-internal-step
-    consumers index the per-ext-step STACKED tables directly instead of
-    dynamic-slicing three ~20 MB tables per step (~60 MB/step of pure
-    copies, several ms/ext at 1M; the direct gathers cost the same row
-    rate either way)."""
-    dtype = x.dtype
-    us, ws = grid.us, grid.ws
-    nv = n_value_lanes(us, ws)
-    i, j, fx, fy = locate_rho_ij(grid, x, y)
-    nx = grid.nx
-    c00 = base + j.astype(jnp.int32) * nx + i.astype(jnp.int32)
-    r00 = flat[c00]
-    r01 = flat[c00 + 1]
-    r10 = flat[c00 + nx]
-    r11 = flat[c00 + nx + 1]
-    fxd = fx.astype(flat.dtype)[:, None]
-    fyd = fy.astype(flat.dtype)[:, None]
-    blended = ((r00 * (1 - fxd) + r01 * fxd) * (1 - fyd)
-               + (r10 * (1 - fxd) + r11 * fxd) * fyd)      # (N, HL)
-    zeta_p = blended[:, nv - 2]
-    h_p = blended[:, nv - 1]
-    u, v, w, z_r0 = _fit_eval_profile(
-        grid, blended[:, 0:us], blended[:, us:2 * us],
-        blended[:, 2 * us:2 * us + ws], zeta_p, h_p, z.astype(blended.dtype),
-        sigma)
-    z0m = jnp.asarray(z0m, dtype)
-    u = u.astype(dtype)
-    v = v.astype(dtype)
-    w = w.astype(dtype)
-    zab = z + h_p.astype(dtype)
-    ztb = jnp.maximum(z_r0.astype(dtype) + h_p.astype(dtype), 2.0 * z0m)
-    decay = jnp.log(jnp.maximum(zab, z0m) / z0m) / jnp.log(ztb / z0m)
-    factor = jnp.where(zab < ztb, jnp.clip(decay, 0.0, 1.0), 1.0)
-    return u * factor, v * factor, w
-
-
-def zeta_h_all(grid: Grid, vt_all: ValueTablesAll, k, x, y):
-    """zeta/h at particles from stage table ``k`` of the stacked
-    per-ext-step tables (flat-index gather, no slicing)."""
-    dtype = x.dtype
-    i, j, fx, fy = locate_rho_ij(grid, x, y)
-    nx = grid.nx
-    C = vt_all.zh_rows.shape[1]
-    flat = vt_all.zh_rows.reshape(-1, vt_all.zh_rows.shape[-1])
-    c00 = k * C + j.astype(jnp.int32) * nx + i.astype(jnp.int32)
-    r0 = flat[c00]
-    r1 = flat[c00 + nx]
-    cells = jnp.stack([r0, r1], axis=1).reshape(x.shape[0], 2, 2, 4)
-    zeta_p = _blend(cells[..., 0], fx, fy).astype(dtype)
-    h_p = _blend(cells[..., 1], fx, fy).astype(dtype)
-    return zeta_p, h_p
-
-
-def find_currents_all(grid: Grid, vt_all: ValueTablesAll, k, x, y, z,
-                      sigma: float, z0m: float):
-    """find_currents_collapsed on stage table ``k`` of the stack."""
-    S, ny, nx, HL = vt_all.full.shape
-    flat = vt_all.full.reshape(S * ny * nx, HL)
-    return _find_currents_rows(grid, flat, k * ny * nx, x, y, z, sigma,
-                               z0m)
-
-
-def rk4_displacement_collapsed_all(grid: Grid, vt_all: ValueTablesAll,
-                                   i, x, y, z, sigma: float, z0m: float,
-                                   idt: float):
-    """rk4_displacement_collapsed for internal step ``i`` gathering
-    straight from the stacked tables (stages 2i, 2i+1, 2i+1, 2i+2)."""
-    S, ny, nx, HL = vt_all.full.shape
-    flat = vt_all.full.reshape(S * ny * nx, HL)
-    C = ny * nx
-    k0 = 2 * jnp.asarray(i, jnp.int32)
-    dt = jnp.asarray(idt, x.dtype)
-    half = 0.5 * dt
-
-    def fc(k, xx, yy, zz):
-        return _find_currents_rows(grid, flat, k * C, xx, yy, zz, sigma,
-                                   z0m)
-
-    u1, v1, w1 = fc(k0, x, y, z)
-    u2, v2, w2 = fc(k0 + 1, x + u1 * half, y + v1 * half, z + w1 * half)
-    u3, v3, w3 = fc(k0 + 1, x + u2 * half, y + v2 * half, z + w2 * half)
-    u4, v4, w4 = fc(k0 + 2, x + u3 * dt, y + v3 * dt, z + w3 * dt)
-    sixth = dt / 6.0
-    return (sixth * (u1 + 2 * u2 + 2 * u3 + u4),
-            sixth * (v1 + 2 * v2 + 2 * v3 + v4),
-            sixth * (w1 + 2 * w2 + 2 * w3 + w4))
 
 
 def stage_tables(grid: Grid, rec: PackedRecords, t, idt: float,

@@ -57,7 +57,7 @@ def find_currents(grid: Grid, fields: FieldSet, x, y, z, t,
     """(u, v, w) at arbitrary particle positions and time.
 
     Returns velocities in the dtype of x (positions), so f64 runs stay
-    f64 end-to-end on CPU while TPU runs stay f32.
+    f64 end-to-end while f32 runs stay f32.
     """
     dtype = x.dtype
     ((iu, ju, fxu, fyu), (iv, jv, fxv, fyv),

@@ -8,7 +8,7 @@ edge); ``mbounds``/``ibounds`` test domain membership; and
 displacement segment and reflects specularly, iterating until no
 crossing remains.
 
-TPU-native redesign (SURVEY.md SS7.3 item 2): the variable-iteration
+Batched redesign (SURVEY.md SS7.3 item 2): the variable-iteration
 per-particle walk becomes a fixed-K, fully vectorized pass:
 
   * host-side precompute (once): boundary segments on the edges of the
@@ -57,18 +57,16 @@ class Boundaries(NamedTuple):
                             #   (_cell_max_step2); slot s at 8+8s =
                             #   [ax, ay, bx, by, kind, valid, 0, 0].
                             #   One row gather serves the whole reflect
-                            #   pass (element gathers through id arrays
-                            #   are ~3x slower per fetch on TPU and
-                            #   there were 5 of them).
+                            #   pass (instead of 5 element gathers
+                            #   through id arrays).
     uniform: bool = False   # static: edge axes exactly uniform (fast locate)
     curv: "CurvMap | None" = None  # curvilinear inverse map (cell_of)
     curv_tol2: "jax.Array | None" = None  # squared inside-mesh residual tol
     max_step2: "jax.Array | None" = None  # GLOBAL (1.5 * min cell
-                            #   edge)^2 — kernel scalar fallback only
-                            #   (the megakernel runs on uniform grids,
-                            #   where it equals the per-cell radius);
-                            #   reflect() uses the per-cell lane-3
-                            #   radius, see _cell_max_step2
+                            #   edge)^2; its presence enables the
+                            #   displacement guard, which reflect()
+                            #   applies with the per-cell lane-3/4
+                            #   radii, see _cell_max_step2
 
     @property
     def n_segments(self) -> int:
@@ -255,8 +253,7 @@ def build_boundaries(mask_rho, x_rho, y_rho, closed_edges=False,
     # Loose tolerance: coordinates may be f32-rounded images of an
     # exactly-uniform axis; a 1e-4 fractional cell-locate error is
     # harmless here (buckets cover the 3x3 neighborhood, and in_water
-    # only needs the containing cell).  The searchsorted fallback is a
-    # serialized binary search on TPU (~40x the whole reflect cost).
+    # only needs the containing cell).
     return Boundaries(
         seg_a=jnp.asarray(seg_a), seg_b=jnp.asarray(seg_b),
         seg_kind=jnp.asarray(seg_kind), bucket=jnp.asarray(bucket),
@@ -396,9 +393,8 @@ def reflect(bounds: Boundaries, x0, y0, x1, y1, open_exits: bool,
                     & (ts >= 0.0) & (ts <= 1.0))
         tp_masked = jnp.where(crossing, tp, jnp.asarray(jnp.inf, dtype))
         first = jnp.argmin(tp_masked, axis=1)
-        # select the first-crossing segment via a one-hot reduction —
-        # take_along_axis over the minor axis is a per-lane gather the
-        # TPU lowers poorly (see ltjax.tension._gather_intervals)
+        # select the first-crossing segment via a one-hot reduction
+        # (see ltjax.tension._gather_intervals)
         onehot_b = first[:, None] == jnp.arange(tp.shape[1])
         onehot = onehot_b.astype(dtype)
         any_cross = jnp.any(crossing & onehot_b, axis=1)

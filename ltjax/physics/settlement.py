@@ -7,7 +7,7 @@ elements to prune the tests; ``testSettlement`` settles a particle that
 is older than ``pediage`` and inside a habitat polygon (and not inside
 a hole), freezing it and recording the polygon id.
 
-TPU-native redesign: polygons are padded vertex arrays; a host-side
+Batched redesign: polygons are padded vertex arrays; a host-side
 raster pass assigns each rho cell its candidate polygon ids (padded,
 -1 filled) from bounding-box overlap, so the device-side test is a
 fixed-shape gather + vectorized ray-casting point-in-polygon over
@@ -139,9 +139,8 @@ def point_in_polygon(vx, vy, px, py):
 def _locate_edges(edges, v, nmax: int, uniform: bool):
     """Cell index of v in an edge lattice.
 
-    uniform=True uses arithmetic locate (searchsorted lowers to a
-    serialized binary search on TPU, ~128 ms per 1M queries —
-    BASELINE.md microarch facts; same rule as boundary.cell_of).
+    uniform=True uses arithmetic locate instead of a per-query
+    binary search (same rule as boundary.cell_of).
     """
     if uniform:
         t = (v - edges[0]) / (edges[1] - edges[0])

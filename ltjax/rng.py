@@ -2,19 +2,18 @@
 
 Reference: random_module.f90 (a Fortran mt19937 port) + norm_module.f90
 (Box-Muller) draw from ONE sequential global stream (SURVEY.md SS2.1
-#12/#13 [conf: H]) — order-dependent and unshardable.  The TPU-native
-replacement derives a Threefry-2x32 block per (seed, step, substream,
+#12/#13 [conf: H]) — order-dependent and unshardable.  The
+replacement here derives a Threefry-2x32 block per (seed, step, substream,
 particle-id): order- and sharding-invariant and restart-stable
 (SURVEY.md SS4 determinism tests).  Exact stochastic-path equality with
 the Fortran is impossible by construction; statistical equivalence is
 what the well-mixed-condition tests assert.
 
 The generator is implemented HERE in plain jnp uint32 ops (not via
-jax.random) so the fused Pallas kernels (ltjax.kernels.ext_step) can run
-the *identical* arithmetic on (sublane, lane) registers: a turbulent
-run takes the same stochastic path whether a particle goes through the
-megakernel or the XLA oob-patch.  Substream ids keep draws within one
-internal step independent.
+jax.random), so any implementation of the step — an XLA path or a
+hand-written kernel — can run the *identical* arithmetic and take the
+same stochastic path.  Substream ids keep draws within one internal
+step independent.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ DEATH = 4       # stochastic-mortality survival draw (Config.
                 #   turning the mode on never perturbs the walk)
 
 # plain Python int (a module-level jnp scalar would be a captured
-# device constant, which Pallas kernels reject)
+# device constant)
 _PARITY = 0x1BD11BDA
 _ROT = (13, 15, 26, 6, 17, 29, 16, 24)
 
@@ -42,7 +41,7 @@ def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32, 20 rounds (the jax.random core PRF).
 
     All args uint32, broadcastable; returns (uint32, uint32).  Written
-    with plain jnp ops only so it lowers in Pallas/Mosaic kernels too.
+    with plain jnp ops only, so a hand-written kernel can mirror it.
     """
     k0 = jnp.asarray(k0, jnp.uint32)
     k1 = jnp.asarray(k1, jnp.uint32)
@@ -93,8 +92,8 @@ def bits_to_uniform(bits, dtype=jnp.float32):
     """uint32 -> (0, 1): 24-bit mantissa, offset half an ulp from 0.
 
     The top 24 bits are moved into an int32 before the float cast —
-    Mosaic has no uint32->f32 conversion, and the value fits in 24
-    bits so the int32 reinterpretation is exact.
+    the value fits in 24 bits, so the int32 reinterpretation is exact
+    and no uint32->float conversion is needed.
     """
     dt = jnp.dtype(dtype).type
     top = jax.lax.bitcast_convert_type(bits >> jnp.uint32(8), jnp.int32)

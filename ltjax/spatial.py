@@ -1,19 +1,15 @@
-"""Spatial locality: Morton ordering of the particle batch.
+"""Spatial locality: Hilbert ordering of the particle batch.
 
 Reference: none — the reference visits particles in storage order
-(LTRANS.f90 ``do n=1,numpar``).  On TPU the fused interpolation kernel
-(ltjax.kernels.gather_interp) processes particles in fixed-size blocks
-against a small VMEM window of grid cells; that only works when a
-block's particles are spatially compact.  A Morton (Z-order) sort of
-the whole state once per external step keeps blocks compact: relative
-dispersion within a block over one external step is tiny compared to
-bulk drift, so window origins recomputed per internal step stay valid
-between sorts.
+(LTRANS.f90 ``do n=1,numpar``).  A cell-order sort of the state puts
+particles that read the same grid-table rows next to each other, so
+the interpolation gathers hit neighbouring memory.  Relative dispersion
+over one external step is small compared to bulk drift, so a sort stays
+useful for several steps.
 
 The permutation is applied by packing the 12 state columns into
-(N, 16)-lane rows (int columns bitcast to f32) and row-gathering —
-element-gathering 12 separate columns is ~3x slower per fetch
-(BASELINE.md microarchitecture facts).
+(N, 16) rows (int columns bitcast to f32) and row-gathering them: one
+gather instead of 12.
 """
 
 from __future__ import annotations
@@ -32,9 +28,8 @@ def hilbert_key(i, j, bits: int = 15):
 
     Unlike Morton order, a contiguous run of Hilbert indices is always
     spatially connected (bbox ~ O(sqrt(run length))), so fixed-size
-    particle blocks stay inside the fused kernel's 16x16-cell window
-    with no heavy tail of discontinuity blocks (measured: Morton left
-    ~4% of 1M uniform particles out-of-window; Hilbert ~0).
+    runs of particles cover compact patches of cells with no heavy tail
+    of discontinuous runs.
 
     bits=15 keeps d = x^2-area index < 2^30 (int32-safe); grids are
     far smaller than 32768 cells per side.
@@ -95,35 +90,22 @@ def sort_by_cell(p: st.Particles, i, j, aspect_y: int = 1,
 
     ``depth_band`` (optional int32 array, values clipped to
     ``[0, n_bands-1]``, ``n_bands`` <= 6): make the band the MAJOR sort
-    key, Hilbert order within each band.  Used for depth-sheared runs
-    (sinking into the bottom log layer): particles at similar height
-    above the seabed share horizontal velocity, so band-major blocks
-    stay compact where depth-mixed blocks disperse past the kernel
-    window (config.sort_depth_bands).  Banded keys use 14 Hilbert bits
-    (vs 15) so band+frozen fit int32; grids are far below 2^14 cells
-    per side either way.
+    key, Hilbert order within each band — particles at similar height
+    above the seabed share horizontal velocity in depth-sheared flow.
+    Banded keys use 14 Hilbert bits (vs 15) so band+frozen fit int32;
+    grids are far below 2^14 cells per side either way.
 
     ``aspect_y`` (power of two): coarsen the eta coordinate by this
     factor in the Hilbert key, so equal-length key runs cover
-    ``aspect_y``x more cells in eta than in xi — blocks come out tall.
-    Matched to the fused kernels' window aspect (wy/wx), this keeps
-    non-square windows (e.g. 16x8, which HALVES the one-hot blend MXU
-    cost vs 16x16) fed with blocks that actually fit: measured at 1M
-    particles, 16x8 windows see ~9.6% window misses with square blocks
-    and <1% with aspect-matched ones.
+    ``aspect_y``x more cells in eta than in xi — runs come out tall.
 
     Frozen particles (settled / dead / out-of-domain / errored — any
     status that can never move again) sort AFTER all live ones: they
     stay wherever they froze while the flow moves on, so leaving them
-    inline would dilute every later block with spatial stragglers and
-    inflate the fused kernels' window-miss population without bound
-    (measured: a 1M run near the patch-capacity edge went into a
-    freeze->straggler->more-overflow feedback, +~1k ERRORs per external
-    step).  Trailing all-frozen blocks produce no window misses at all
-    (the kernel only flags ``oob`` for active particles).
+    inline would scatter stragglers through every run of live ones.
 
-    Requires f32 position dtype (the kernel path's precondition); the
-    permutation row-gather exactly preserves every column bit pattern.
+    Requires f32 positions: the permutation row-gather packs every
+    column into f32 lanes and preserves each bit pattern exactly.
     """
     if aspect_y > 1:
         j = j >> (int(aspect_y).bit_length() - 1)

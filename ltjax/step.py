@@ -5,30 +5,25 @@ Reference: ``run_External_Timestep`` / ``run_Internal_Timestep`` /
 internal step each particle is released/aged, advected by RK4, kicked
 by HTurb/VTurb/behavior, boundary-reflected, settled, and sampled.
 
-TPU-native design (SURVEY.md SS7.1): one *external* step is a single
-jitted ``lax.scan`` over the internal steps, with the whole particle
-batch updated per operator under status masks — the hot loop never
-leaves the device.  All configuration flags are Python constants
-captured at trace time, so disabled operators cost nothing.
+Design (SURVEY.md SS7.1): one *external* step is a single jitted
+``lax.scan`` over the internal steps, with the whole particle batch
+updated per operator under status masks — the hot loop never leaves
+the device.  All configuration flags are Python constants captured at
+trace time, so disabled operators cost nothing.
 """
 
 from __future__ import annotations
 
-import functools
-import os
 from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
 
 from . import packed as pk
-from . import spatial as sp
 from . import state as st
 from .config import Config
 from .fields import FieldSet
-from .grid import (Grid, affine_ladders as _affine_ladders, locate,
-                   logical_coords)
-from .kernels import gather_interp as gi
+from .grid import Grid
 from .physics import behavior as bh
 from .physics import boundary as bd
 from .physics import settlement as stl
@@ -62,61 +57,15 @@ def make_params(cfg: Config):
     return adv, turb, beh
 
 
-def _precision(cfg: Config):
-    return {"highest": jax.lax.Precision.HIGHEST,
-            "hilo3": "hilo3",
-            "pair2": "pair2",
-            "default": jax.lax.Precision.DEFAULT}[cfg.kernel_precision]
-
-
-def _per_step_precision(cfg: Config):
-    """The per-internal-step kernel (gather_interp) consumes stage
-    VALUE tables, which are not pair-packed — map pair2 to its
-    precision equal hilo3 there."""
-    p = _precision(cfg)
-    return "hilo3" if p == "pair2" else p
-
-
-def _rk4_fused_padded(grid: Grid, vtabs, x, y, z, sigma: float, z0m: float,
-                      idt: float, p_block: int, precision,
-                      window=(gi.WY, gi.WX), fast_math: bool = False,
-                      sfast: bool = True, interpret: bool = False):
-    """Pad the batch to a p_block multiple (replicating the last
-    particle), run the fused kernel, slice back."""
-    n = x.shape[0]
-    pad = (-n) % p_block
-    if pad:
-        x = jnp.concatenate([x, jnp.broadcast_to(x[-1:], (pad,))])
-        y = jnp.concatenate([y, jnp.broadcast_to(y[-1:], (pad,))])
-        z = jnp.concatenate([z, jnp.broadcast_to(z[-1:], (pad,))])
-    dx, dy, dz, ovf = gi.rk4_displacement_fused(
-        grid, vtabs, x, y, z, sigma, z0m, idt, p_block=p_block,
-        precision=precision, window=window, fast_math=fast_math,
-        sfast=sfast, interpret=interpret)
-    return dx[:n], dy[:n], dz[:n], ovf[:n]
-
-
 def internal_step(ctx: StepContext, cfg: Config, base_key,
                   p: st.Particles, fields: FieldSet, t, step_idx,
-                  prec: "pk.PackedRecords | None" = None,
-                  mode: str = "packed") -> st.Particles:
+                  prec: "pk.PackedRecords | None" = None) -> st.Particles:
     """One internal timestep for the whole particle batch.
 
-    ``prec`` (packed per-record tables) enables the gather-optimized
-    interpolation paths (ltjax.packed) for advection and the zeta/h
-    lookups; turbulence/behavior/scalar sampling keep the native path.
-    ``mode`` selects among them (native when ``prec`` is None):
-      * "packed"    — pair-row tables, column splines (fit-then-blend)
-      * "collapsed" — values tables, blend-then-fit (the fused kernels'
-                      scheme, pure XLA — their oracle)
-      * "records"   — the same collapsed scheme evaluated straight from
-                      record rows (``prec`` is a pk.RecordsFlat): no
-                      grid-sized table builds inside a step scan — the
-                      megakernel's oob-patch path (value-identical to
-                      "collapsed")
-      * "kernel"    — per-step fused Pallas RK4 kernel (requires
-                      Hilbert-sorted f32 positions on a uniform grid —
-                      make_external_step arranges the sort)
+    ``prec`` (packed per-record tables) selects the fast path: advection
+    and the zeta/h lookups run on ltjax.packed's stage tables (column
+    splines, fit-then-blend); turbulence, behavior and scalar sampling
+    keep the native interpolation.  ``prec=None`` is the native path.
     """
     adv, turb, beh = make_params(cfg)
     grid, bounds = ctx.grid, ctx.bounds
@@ -124,26 +73,7 @@ def internal_step(ctx: StepContext, cfg: Config, base_key,
     idt = jnp.asarray(float(cfg.idt), dtype)
     tt = jnp.asarray(t, dtype)
     fast = prec is not None
-    blendfit = mode in ("collapsed", "collapsed_tabs", "collapsed_all",
-                        "kernel")
-    if fast and mode == "records":
-        rft = prec
-    elif fast and mode == "collapsed_all":
-        # caller passes (ValueTablesAll, internal-step index): consumers
-        # gather straight from the stacked per-ext-step tables via a
-        # stage row offset — no per-step dynamic-slice copies (the
-        # slice_stage_tables form moved ~60 MB/step, several ms/ext at
-        # 1M — the megakernel patch's main fixed cost after the scan)
-        vt_all, istep = prec
-        k0 = 2 * jnp.asarray(istep, jnp.int32)
-    elif fast and mode == "collapsed_tabs":
-        # caller passes the three pre-built stage ValueTables directly
-        # (megakernel patch: packed.slice_stage_tables of the per-ext-
-        # step stack — no grid-sized builds inside the step scan)
-        tabs = prec
-    elif fast and blendfit:
-        tabs = pk.stage_value_tables(grid, prec, t, float(cfg.idt))
-    elif fast:
+    if fast:
         tabs = pk.stage_tables(grid, prec, t, float(cfg.idt),
                                cfg.tension_sigma)
 
@@ -153,32 +83,7 @@ def internal_step(ctx: StepContext, cfg: Config, base_key,
     active = status == st.ACTIVE
 
     # --- advection ------------------------------------------------------
-    adv_err = jnp.zeros(p.n, bool)
-    if fast and mode == "kernel":
-        # the per-step kernel's stage tables are NOT pair-packed, so
-        # bilinear stencils need li+1 in-window (one usable column
-        # fewer than the megakernel's pair2 windows) — keep its window
-        # at least 16 cells wide or an 8-wide window leaves ~1-cell
-        # margins and floods the overflow patch
-        dxa, dya, dza, adv_err = _rk4_fused_padded(
-            grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0,
-            float(cfg.idt), resolve_kernel_block(cfg, ctx),
-            _per_step_precision(cfg),
-            window=(cfg.kernel_wy, max(cfg.kernel_wx, 16)),
-            fast_math=cfg.kernel_fast_math, sfast=cfg.kernel_sfast)
-    elif fast and mode == "records":
-        dxa, dya, dza = pk.rk4_displacement_records(
-            grid, rft, p.x, p.y, p.z, t, cfg.tension_sigma, cfg.z0,
-            float(cfg.idt))
-    elif fast and mode == "collapsed_all":
-        dxa, dya, dza = pk.rk4_displacement_collapsed_all(
-            grid, vt_all, istep, p.x, p.y, p.z, cfg.tension_sigma,
-            cfg.z0, float(cfg.idt))
-    elif fast and mode in ("collapsed", "collapsed_tabs"):
-        dxa, dya, dza = pk.rk4_displacement_collapsed(
-            grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0,
-            float(cfg.idt))
-    elif fast:
+    if fast:
         dxa, dya, dza = pk.rk4_displacement_packed(
             grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0,
             float(cfg.idt))
@@ -201,28 +106,12 @@ def internal_step(ctx: StepContext, cfg: Config, base_key,
     # --- behavior -------------------------------------------------------
     dies = jnp.zeros(p.n, bool)
     if cfg.Behavior != 0 or cfg.mortality:
-        if fast and mode == "records":
-            zeta_p, h_p = pk.zeta_h_records(grid, rft, p.x, p.y, t)
-        elif fast and mode == "collapsed_all":
-            zeta_p, h_p = pk.zeta_h_all(grid, vt_all, k0, p.x, p.y)
-        elif fast:
+        if fast:
             zeta_p, h_p = pk.zeta_h_packed(grid, tabs[0], p.x, p.y)
         else:
             zeta_p, h_p = zeta_h_at(grid, fields, p.x, p.y, tt)
         if cfg.Behavior == 7:
-            if fast and mode == "records":
-                cur = pk.find_currents_records(grid, rft, p.x, p.y, p.z,
-                                               t, cfg.tension_sigma,
-                                               cfg.z0)[:2]
-            elif fast and mode == "collapsed_all":
-                cur = pk.find_currents_all(grid, vt_all, k0, p.x, p.y,
-                                           p.z, cfg.tension_sigma,
-                                           cfg.z0)[:2]
-            elif fast and blendfit:
-                cur = pk.find_currents_collapsed(grid, tabs[0], p.x, p.y,
-                                                 p.z, cfg.tension_sigma,
-                                                 cfg.z0)[:2]
-            elif fast:
+            if fast:
                 cur = pk.find_currents_packed(grid, tabs[0], p.x, p.y,
                                               p.z, cfg.tension_sigma,
                                               cfg.z0)[:2]
@@ -247,12 +136,7 @@ def internal_step(ctx: StepContext, cfg: Config, base_key,
 
     # --- vertical reflection at the new column --------------------------
     z1 = p.z + dz
-    if fast and mode == "records":
-        zeta1, h1 = pk.zeta_h_records(grid, rft, xr, yr,
-                                      t + float(cfg.idt))
-    elif fast and mode == "collapsed_all":
-        zeta1, h1 = pk.zeta_h_all(grid, vt_all, k0 + 2, xr, yr)
-    elif fast:
+    if fast:
         zeta1, h1 = pk.zeta_h_packed(grid, tabs[2], xr, yr)
     else:
         zeta1, h1 = zeta_h_at(grid, fields, xr, yr, tt + idt)
@@ -275,7 +159,7 @@ def internal_step(ctx: StepContext, cfg: Config, base_key,
 
     new_status = status
     new_status = jnp.where(active & exited, st.OUT_OF_DOMAIN, new_status)
-    new_status = jnp.where(active & (stuck | adv_err), st.ERROR, new_status)
+    new_status = jnp.where(active & stuck, st.ERROR, new_status)
     if cfg.mortality:
         new_status = jnp.where(active & dies & ~exited, st.DEAD, new_status)
     if cfg.settlementon:
@@ -307,629 +191,45 @@ def internal_step(ctx: StepContext, cfg: Config, base_key,
         hit_land=hit_land, hit_bottom=hit_bottom, salt=salt, temp=temp)
 
 
-def resolve_kernel_block(cfg: Config, ctx: StepContext) -> int:
-    """Auto-size the fused-kernel particle block from the PARTICLE
-    DENSITY (cfg.kernel_block > 0 overrides).
+def mode_flags(cfg: Config) -> str:
+    """The compute path a configuration gets: ``"fast"`` (packed-table
+    interpolation, ltjax.packed) or ``"native"`` (reference-ordered
+    per-particle interpolation, ltjax.physics.advect).
 
-    The VMEM window scheme needs each Hilbert-sorted block to cover
-    well under a window's worth of cells.  The measured sweet spot
-    (BASELINE.md round-4 sweep) is blocks spanning ~41 cells — at the
-    1M-bench density (25/cell) that is the production p_block 1024; at
-    LOW densities a fixed 1024 makes blocks span several windows and
-    ~everything misses into the patch (a 200k-particle run on the
-    200x200 grid errored 91% of its particles before this rule)."""
-    if cfg.kernel_block > 0:
-        return cfg.kernel_block
-    import numpy as np
-    water = max(int(np.asarray(ctx.bounds.water).sum()), 1)
-    density = cfg.numpar / water
-    pb = (int(41 * density) // 128) * 128
-    return max(256, min(1024, pb))
-
-
-def resolve_oob_frac(cfg: Config, ctx: StepContext,
-                     x0=None, y0=None) -> int:
-    """Auto-size the exact-recompute patch capacity from the config
-    (returns the equivalent ``oob_frac``; cfg.oob_frac > 0 overrides).
-
-    The patch absorbs window misses AND settlement rim-cell deferrals;
-    overflow freezes particles as ERROR (loud, fatal under
-    ErrorFlag=0), so the capacity must sit clearly above the expected
-    peak.  Sizing rules (all measured, BASELINE.md):
-
-      * base n/64 (~1.6%): clearly above the ~1% steady miss rate of
-        the aspect-sorted production window;
-      * sinking transit (Behavior 6): the front crossing the bottom
-        log layer disperses Hilbert blocks and misses peak near 2-3% —
-        sink*dt >= 1 m/ext-step raises capacity to n/32, >= 6 m to
-        n/16 (oob_frac 32 and 16 both complete the measured 4M transit
-        stress with ZERO errors at ~unchanged wall clock);
-      * settlement: every pediage-eligible particle in a partial
-        (polygon-rim) habitat cell defers to the exact point-in-polygon
-        patch each step, so capacity adds 4x the initial rim-cell
-        occupancy (per-cell histogram of the release positions when
-        given; 8x the uniform-density estimate otherwise — release
-        clustering concentrates density above the domain mean).
-
-    Drivers call this once with the release positions before building
-    the compiled steps; _mega_external_step falls back to the
-    position-free estimate when the config still says auto.
+    Decided from the configuration alone: adaptive tension
+    (``tension_sigma < 0``) varies per interval and particle, which
+    only the native path implements.
     """
-    if cfg.oob_frac > 0:
-        return cfg.oob_frac
-    import numpy as np
-    n = cfg.numpar
-    # base n/64 (~1.6%): clearly above the ~0.9% steady miss rate of
-    # pure advection (capacity is NOT free — doubling it cost the
-    # advect bench ~4% even with the tail chunks cond-skipped, mostly
-    # in the fixed-size compaction bookkeeping).  Configs with
-    # VERTICAL spread get n/32: mixing / swimming / sinking walks
-    # particles into the bottom log layer over long runs, where
-    # decelerating blocks disperse (measured: a 96-ext-step turbulent
-    # chain overflowed n/64); strong sinking fronts peak near 2-3%
-    # misses mid-transit and get n/16 (both validated on-chip,
-    # BASELINE.md).
-    frac = 64
-    if cfg.VTurbOn or cfg.Behavior in (1, 2, 3, 4, 5):
-        frac = 32
-    if cfg.Behavior == 6 and cfg.sink > 0:
-        frac = (16 if float(cfg.sink) * float(cfg.dt) >= 1.0 else 32)
-    # low particle density makes Hilbert runs ragged and raises the
-    # steady miss rate even at the auto-sized kernel block (round-4
-    # host window sim) — give sparse runs double capacity
-    water = max(int(np.asarray(ctx.bounds.water).sum()), 1)
-    if n / water < 8.0:
-        frac = min(frac, 16)
-    cap = max(256, n // frac)
-    if cfg.settlementon and ctx.polys is not None:
-        from .kernels import ext_step as es
-        state, _ = es.settle_lanes(ctx.polys, ctx.holes,
-                                   ctx.bounds.x_edges,
-                                   ctx.bounds.y_edges)
-        rim = state == 2.0
-        n_rim = int(rim.sum())
-        if n_rim:
-            xe = np.asarray(ctx.bounds.x_edges)
-            ye = np.asarray(ctx.bounds.y_edges)
-            if x0 is not None:
-                cj = np.clip(np.searchsorted(ye, np.asarray(y0)) - 1,
-                             0, rim.shape[0] - 1)
-                ci = np.clip(np.searchsorted(xe, np.asarray(x0)) - 1,
-                             0, rim.shape[1] - 1)
-                counts = np.zeros(rim.shape, np.int64)
-                np.add.at(counts, (cj, ci), 1)
-                occ = 4 * int(counts[rim].sum())
-            else:
-                water = max(int(np.asarray(ctx.bounds.water).sum()), 1)
-                occ = 8 * int(np.ceil(n * n_rim / water))
-            cap += occ
-    return max(1, n // max(cap, 1))
-
-
-def boundary_s_max(bounds: bd.Boundaries) -> int:
-    """True boundary-segment slot count of the packed cell rows (the
-    lanes beyond ``8 + 8*s_max`` are 128-multiple DMA padding).  Single
-    source of truth for step.py and the benchmarks (layout defined in
-    ltjax.physics.boundary.build_boundaries)."""
-    return (int(bounds.cell_rows.shape[1]) - 8) // 8
-
-
-def mode_flags(ctx: StepContext, cfg: Config):
-    """Resolve which compute path the configuration gets.
-
-    Returns (use_fast, use_kernel, use_mega):
-      * use_fast   — packed-table interpolation (ltjax.packed)
-      * use_kernel — fused Pallas RK4 kernel per internal step
-      * use_mega   — whole-external-step Pallas megakernel
-    """
-    # adaptive tension (<0) varies per interval/particle — native only
-    use_fast = cfg.fast_interp and cfg.tension_sigma >= 0
-    # the fused Pallas kernels additionally need a TPU backend, f32
-    # positions, and a uniform grid (arithmetic cell location)
-    use_kernel = (use_fast and cfg.kernel_interp and ctx.grid.uniform
-                  and cfg.dtype_pos == "float32"
-                  and jax.default_backend() == "tpu")
-    # CURVILINEAR megakernel: particles carry logical coordinates and
-    # the kernel refines them with in-window Newton steps against the
-    # xy corner window (kernels.ext_step curv_mode); covers passive /
-    # sinking transport + turbulence + mortality — swimming behaviors,
-    # settlement and salt sampling stay on the per-step XLA path, and
-    # ALL boundary interaction defers to the exact patch
-    use_mega_curv = (use_fast and cfg.kernel_interp
-                     and ctx.grid.curv is not None
-                     and cfg.dtype_pos == "float32"
-                     and jax.default_backend() == "tpu"
-                     and cfg.kernel_precision == "pair2"
-                     and cfg.kernel_sfast
-                     and _affine_ladders(ctx.grid) is not None
-                     and cfg.Behavior in (0, 1, 2, 3, 6, 7)
-                     and not cfg.settlementon and not cfg.SaltTempOn
-                     and not (cfg.mortality and cfg.stochastic_mortality))
-    # the whole-external-step megakernel covers advection + boundary +
-    # turbulence (in-kernel Threefry streams identical to ltjax.rng),
-    # behaviors 0-6 (zone-biased walks, DVM, salinity-cued ontogeny,
-    # constant sinking), mortality, settlement (full-cell fast path +
-    # exact-patch deferral), and SaltTempOn sampling.  The salt paths
-    # (SaltTempOn / behaviors 4-5) additionally need the pair2 blend +
-    # the constant-ladder vertical scheme (affine ladders);
-    # non-qualifying salt configs drop to the per-step kernel
-    # (advection fused, the rest XLA).  All behavior types 0-7 are
-    # covered (TST rides the stage-1 currents in-kernel).
-    needs_salt = cfg.SaltTempOn or cfg.Behavior in (4, 5)
-    salt_ok = (cfg.kernel_precision == "pair2" and cfg.kernel_sfast
-               and _affine_ladders(ctx.grid) is not None)
-    # stochastic mortality stays on the per-step path (its DEATH draw
-    # is not in the kernel's rngk layout; deterministic mortality — the
-    # default — is in-kernel)
-    use_mega = ((use_kernel
-                 and (not needs_salt or salt_ok)
-                 and not (cfg.mortality and cfg.stochastic_mortality))
-                or use_mega_curv)
-    return use_fast, use_kernel, use_mega
-
-
-def _sort_cells(grid: Grid, p: st.Particles, ti=None, tj=None):
-    """Hilbert-sort cell indices — curvilinear-aware (logical cells
-    from carried/recomputed logical coordinates)."""
-    if grid.curv is not None:
-        if ti is None:
-            ti, tj = logical_coords(grid, p.x, p.y)
-        ci = jnp.clip(jnp.floor(ti), 0, grid.nx - 1).astype(jnp.int32)
-        cj = jnp.clip(jnp.floor(tj), 0, grid.ny - 1).astype(jnp.int32)
-        return ci, cj
-    ci, _ = locate(grid.x_rho, p.x, grid.uniform)
-    cj, _ = locate(grid.y_rho, p.y, grid.uniform)
-    return ci, cj
-
-
-def _sort_band(cfg: Config, grid: Grid, p: st.Particles, ci, cj):
-    """Depth-band ids for the Hilbert sort, or None when banding is off.
-
-    Bands count ``cfg.sort_band_height``-metre slabs of height above the
-    local seabed (band 0 touches the bottom log layer; the top band is
-    open-ended).  See config.sort_depth_bands / spatial.sort_by_cell.
-    """
-    if cfg.sort_depth_bands <= 1:
-        return None
-    hab = p.z + grid.h[cj, ci]              # height above bottom [m]
-    if cfg.sort_band_log:
-        # boundaries at h*2^k: log-layer speed ~ ln(hab), so these are
-        # ~equal-speed bands (clip in sort_by_cell caps the top band)
-        return (jnp.floor(jnp.log2(jnp.maximum(hab, 1e-3)
-                                   / cfg.sort_band_height))
-                .astype(jnp.int32) + 1)
-    return jnp.floor(hab / cfg.sort_band_height).astype(jnp.int32)
+    if cfg.fast_interp and cfg.tension_sigma >= 0:
+        return "fast"
+    return "native"
 
 
 def make_external_step(ctx: StepContext, cfg: Config, base_key):
     """Compile one external step: scan of cfg.internal_steps internal
     steps, fields fixed (the triple buffer covers [t_c, t_f]).
 
-    With ``cfg.fast_interp`` the per-record packed tables are built
-    once per external step (dense, grid-sized) and the scan body runs
-    the gather-optimized path."""
+    On the fast path the per-record packed tables are built once per
+    external step (dense, grid-sized) and the scan body runs the
+    gather-optimized interpolation."""
     n_int = cfg.internal_steps
     idt = float(cfg.idt)
-
-    use_fast, use_kernel, use_mega = mode_flags(ctx, cfg)
-
-    if use_mega:
-        from .kernels import ext_step as es
-        brows = jnp.asarray(es.boundary_rows_table(
-            ctx.bounds, ctx.grid.ny, ctx.grid.nx,
-            polys=ctx.polys if cfg.settlementon else None,
-            holes=ctx.holes))
-        s_max = boundary_s_max(ctx.bounds)
-        wxy = (jnp.asarray(es.curv_xy_table(ctx.grid, ctx.bounds))
-               if ctx.grid.curv is not None else None)
-
-    mega_aks = use_mega and cfg.VTurbOn and cfg.readAks
-    mega_sc = use_mega and cfg.needs_salt_fields()
+    fast = mode_flags(cfg) == "fast"
 
     @jax.jit
     def ext_step(p: st.Particles, fields: FieldSet, t0, ext_idx):
-        prec = (pk.build_packed_records(ctx.grid, fields,
-                                        with_aks=mega_aks,
-                                        with_scalars=mega_sc)
-                if use_fast else None)
+        prec = pk.build_packed_records(ctx.grid, fields) if fast else None
 
-        if use_kernel or use_mega:
-            # Hilbert sort once per external step: the kernels' VMEM
-            # window scheme needs spatially compact particle blocks
-            # (aspect-matched to non-square windows)
-            ci, cj = _sort_cells(ctx.grid, p)
-            p, perm = sp.sort_by_cell(
-                p, ci, cj, aspect_y=max(1, cfg.kernel_wy // cfg.kernel_wx),
-                depth_band=_sort_band(cfg, ctx.grid, p, ci, cj),
-                n_bands=cfg.sort_depth_bands)
+        def body(carry, i):
+            t = t0 + i * idt
+            step_idx = ext_idx * n_int + i
+            return internal_step(ctx, cfg, base_key, carry, fields, t,
+                                 step_idx, prec), None
 
-        if use_mega:
-            p2 = _mega_external_step(ctx, cfg, base_key, p, fields, prec,
-                                     brows, s_max, t0, ext_idx, wxy=wxy)
-            if ctx.grid.curv is not None:
-                p2 = p2[0]        # (out, ti, tj) — ti/tj not carried here
-        else:
-            mode = "kernel" if use_kernel else "packed"
-
-            def body(carry, i):
-                pp = carry
-                t = t0 + i * idt
-                step_idx = ext_idx * n_int + i
-                return internal_step(ctx, cfg, base_key, pp, fields, t,
-                                     step_idx, prec, mode=mode), None
-
-            p2, _ = jax.lax.scan(body, p, jnp.arange(n_int))
-        if use_kernel or use_mega:
-            p2 = sp.unsort(p2, perm)
+        p2, _ = jax.lax.scan(body, p, jnp.arange(n_int))
         return p2
 
     return ext_step
-
-
-def make_fused_external_steps(ctx: StepContext, cfg: Config, base_key,
-                              n_fuse: int, interpret: bool = False):
-    """Compile ``n_fuse`` consecutive external steps into ONE jitted
-    call (megakernel path only) over an (n_fuse + 2)-record field
-    window.
-
-    Motivation (BASELINE.md): at 1M particles one external step costs
-    ~320 ms of which ~37 ms is Hilbert sort/unsort + per-call dispatch
-    — per-step fixed costs that this call pays ONCE for n_fuse steps.
-    Block drift between sorts is tiny (bulk drift ~0.4 cells per
-    external step on the baseline case), so the kernel's mean-tracking
-    window origins stay valid; any straggler that leaves its block's
-    window takes the exact oob-patch path, same as within one step.
-
-    Returns ``fused(p, fsR, t0, ext_idx0) -> p'`` where ``fsR`` is a
-    FieldSet whose leaves carry a leading record axis of n_fuse + 2
-    (times included); external step e uses records [e, e+1, e+2] —
-    value-identical to n_fuse sequential make_external_step calls on
-    the rotating triple buffer (reference ``updateHydro`` semantics,
-    SURVEY.md SS3.3).
-    """
-    from .kernels import ext_step as es
-
-    if not interpret:
-        use_fast, use_kernel, use_mega = mode_flags(ctx, cfg)
-        assert use_mega, "fused multi-step requires the megakernel path"
-    grid = ctx.grid
-    n_int = cfg.internal_steps
-    dt = float(cfg.dt)
-    curv = grid.curv is not None
-    mega_aks = cfg.VTurbOn and cfg.readAks
-    mega_sc = cfg.needs_salt_fields()
-    brows = jnp.asarray(es.boundary_rows_table(
-        ctx.bounds, grid.ny, grid.nx,
-        polys=ctx.polys if cfg.settlementon else None, holes=ctx.holes))
-    s_max = boundary_s_max(ctx.bounds)
-    wxy = (jnp.asarray(es.curv_xy_table(grid, ctx.bounds))
-           if curv else None)
-
-    aks_split = ((mega_aks or mega_sc) and not curv
-                 and cfg.kernel_precision == "pair2")
-
-    @jax.jit
-    def fused(p: st.Particles, fsR: FieldSet, t0, ext_idx0):
-        prec_all = pk.build_packed_records(grid, fsR, with_aks=mega_aks,
-                                           with_scalars=mega_sc)
-        if aks_split:
-            rtab_all = pk.build_record_tables_split(grid, prec_all)
-        else:
-            rtab_all = pk.build_record_tables(
-                grid, prec_all, paired=cfg.kernel_precision == "pair2")
-        if curv:
-            # logical coordinates computed ONCE per fused call, then
-            # CARRIED: the kernel outputs refreshed values and the
-            # patch corrects its subset, so the full-batch seed-raster
-            # Newton (12 row gathers/particle) amortizes over n_fuse
-            # external steps
-            ti0, tj0 = logical_coords(grid, p.x, p.y)
-            ti0 = ti0.astype(jnp.float32)
-            tj0 = tj0.astype(jnp.float32)
-        else:
-            ti0 = tj0 = jnp.zeros((0,), jnp.float32)
-
-        def body(carry, e):
-            pp, cum, tis, tjs = carry
-
-            # Hilbert re-sort every cfg.ext_sort_every external steps
-            # (composing the permutation).  Blocks stay coherent over a
-            # few steps — bulk drift is tracked by the kernel's window
-            # origins and turbulence spreads a block < 0.1 cell per ext
-            # step — so a sparser cadence trades no measured miss-rate
-            # increase for ~15 ms/step of sort cost at 1M; any spread
-            # a config DOES develop lands in the exact patch (and, on
-            # overflow, in visible ERROR counts), never in silent error.
-            def do_sort(args):
-                pp, cum, tis, tjs = args
-                ci, cj = _sort_cells(grid, pp,
-                                     *((tis, tjs) if curv else (None,
-                                                                None)))
-                ps, perm = sp.sort_by_cell(
-                    pp, ci, cj,
-                    aspect_y=max(1, cfg.kernel_wy // cfg.kernel_wx),
-                    depth_band=_sort_band(cfg, grid, pp, ci, cj),
-                    n_bands=cfg.sort_depth_bands)
-                if curv:
-                    return ps, cum[perm], tis[perm], tjs[perm]
-                return ps, cum[perm], tis, tjs
-
-            se = max(1, cfg.ext_sort_every)
-            pp, cum, tis, tjs = jax.lax.cond((e % se) == 0, do_sort,
-                                             lambda a: a,
-                                             (pp, cum, tis, tjs))
-            tab3 = jax.lax.dynamic_slice_in_dim(prec_all.tab, e, 3, 0)
-            times3 = jax.lax.dynamic_slice_in_dim(fsR.times, e, 3, 0)
-            prec3 = pk.PackedRecords(tab=tab3, times=times3,
-                                     with_aks=mega_aks,
-                                     with_scalars=mega_sc)
-            if aks_split:
-                rtab3 = tuple(jax.lax.dynamic_slice_in_dim(a, e, 3, 0)
-                              for a in rtab_all)
-            else:
-                rtab3 = jax.lax.dynamic_slice_in_dim(rtab_all, e, 3, 0)
-            f3 = FieldSet(
-                *(jax.lax.dynamic_slice_in_dim(a, e, 3, 0)
-                  for a in fsR[:-1]), times=times3)
-            res = _mega_external_step(
-                ctx, cfg, base_key, pp, f3, prec3, brows, s_max,
-                t0 + e.astype(p.x.dtype) * dt, ext_idx0 + e, rtab=rtab3,
-                interpret=interpret, wxy=wxy,
-                tis=tis if curv else None, tjs=tjs if curv else None)
-            if curv:
-                pp, tis, tjs = res
-            else:
-                pp = res
-            return (pp, cum, tis, tjs), None
-
-        cum0 = jnp.arange(p.n, dtype=jnp.int32)
-        (ps, cum, _, _), _ = jax.lax.scan(body, (p, cum0, ti0, tj0),
-                                          jnp.arange(n_fuse))
-        return sp.unsort(ps, cum)
-
-    return fused
-
-
-def _mega_external_step(ctx: StepContext, cfg: Config, base_key,
-                        p: st.Particles, fields: FieldSet, prec, brows,
-                        s_max: int, t0, ext_idx,
-                        rtab=None, interpret: bool = False,
-                        params_static=None, wxy=None,
-                        tis=None, tjs=None):
-    """One external step through the whole-external-step Pallas kernel
-    (ltjax.kernels.ext_step) + exact XLA recompute of out-of-window
-    particles via the collapsed mirror path.
-
-    ``rtab`` (the (3, Ny, Nx, HL) record tables) may be passed in by
-    callers that already hold them (the fused multi-step driver slices
-    them from a stacked record window); built from ``prec`` otherwise.
-
-    ``wxy`` (kernels.ext_step.curv_xy_table) engages the CURVILINEAR
-    kernel; ``tis``/``tjs`` optionally carry the particles' logical
-    coordinates (computed here when absent), and the return becomes
-    ``(out, tis', tjs')`` with the patch subset's values recomputed
-    exactly.
-    """
-    from .kernels import ext_step as es
-
-    grid = ctx.grid
-    curv = wxy is not None
-    n_int = cfg.internal_steps
-    idt = float(cfg.idt)
-    n = p.n
-    pb = resolve_kernel_block(cfg, ctx)
-    pad = (-n) % pb
-    if curv and tis is None:
-        tis, tjs = logical_coords(grid, p.x, p.y)
-        tis = tis.astype(jnp.float32)
-        tjs = tjs.astype(jnp.float32)
-
-    # Aks-split kernel mode (build_record_tables_split): main tables
-    # stay 128-lane (16x8 window, 1x blend); the Visser profile gathers
-    # from its own paired window
-    aks_split = ((prec.with_aks or prec.with_scalars) and not curv
-                 and cfg.kernel_precision == "pair2")
-    rtab_aks = None
-    if isinstance(rtab, tuple):
-        rtab, rtab_aks = rtab
-    elif rtab is None:
-        if aks_split:
-            rtab, rtab_aks = pk.build_record_tables_split(grid, prec)
-        else:
-            rtab = pk.build_record_tables(
-                grid, prec, paired=cfg.kernel_precision == "pair2")
-    beh_swim = cfg.Behavior in (1, 2, 3, 4, 5)
-    beh_any = cfg.Behavior in (1, 2, 3, 4, 5, 7)
-    settle_on = cfg.settlementon and ctx.polys is not None
-    beh = (dict(pediage=float(cfg.pediage), swimstart=float(cfg.swimstart),
-                swimslow=float(cfg.swimslow), swimfast=float(cfg.swimfast),
-                Kp=float(cfg.Kp), thresh=float(cfg.thresh),
-                Sgradient=float(cfg.Sgradient),
-                Hswimspeed=float(cfg.Hswimspeed),
-                Swimdepth=float(cfg.Swimdepth))
-           if (beh_any or settle_on) else None)
-    dvm = ((float(cfg.twistart), float(cfg.twiend), float(cfg.Em))
-           if cfg.Behavior == 3 else None)
-    if params_static is not None:
-        # per-tile static head (sharded megakernel): Y0/BY0 carry the
-        # tile's eta origin; only the dynamic tail is built here
-        params = es.finish_params(params_static, t0, fields.times, idt,
-                                  n_int, dvm=dvm)
-    else:
-        params = es.params_array_ext(
-            grid, ctx.bounds, cfg.z0, t0, fields.times, idt, n_int,
-            const_hturb=(cfg.ConstantHTurb if cfg.HTurbOn else 0.0),
-            const_vturb=(cfg.ConstantVTurb if cfg.VTurbOn else 0.0),
-            sink=(cfg.sink if cfg.Behavior == 6 else 0.0),
-            deadage=(cfg.deadage if cfg.mortality else float("inf")),
-            dvm=dvm, curv=curv)
-    rngk = (es.rng_keys_array(base_key, ext_idx, n_int, behave=beh_swim)
-            if (cfg.HTurbOn or cfg.VTurbOn or beh_swim) else None)
-
-    def padded(a, fill=None):
-        if pad == 0:
-            return a
-        tailv = a[-1:] if fill is None else jnp.full(
-            (1,), fill, a.dtype)
-        return jnp.concatenate([a, jnp.broadcast_to(tailv, (pad,))])
-
-    # pad slots are NOT_RELEASED with dob=+inf: never activate, never move
-    res = es.ext_step_fused(
-        grid, rtab, brows, params,
-        padded(p.x), padded(p.y), padded(p.z),
-        padded(p.dob, jnp.inf),
-        padded(p.status, st.NOT_RELEASED),
-        cfg.tension_sigma, n_int, idt,
-        n_iter=cfg.reflect_iters, p_block=pb, s_max=s_max,
-        precision=_precision(cfg),
-        open_exits=cfg.OpenOceanBoundary,
-        pids=padded(p.pid, -1), rngk=rngk,
-        hturb_on=cfg.HTurbOn, vturb_on=cfg.VTurbOn,
-        with_aks=prec.with_aks,
-        window=(cfg.kernel_wy, cfg.kernel_wx),
-        fast_math=cfg.kernel_fast_math, sfast=cfg.kernel_sfast,
-        sink_on=cfg.Behavior == 6, mortality=cfg.mortality,
-        behavior=cfg.Behavior if beh_any else 0, beh=beh,
-        settle_on=settle_on, spols=padded(p.settle_poly, -1),
-        salt_on=cfg.SaltTempOn, with_scalars=prec.with_scalars,
-        salts=padded(p.salt), temps=padded(p.temp),
-        wxy=wxy,
-        tis=padded(tis) if curv else None,
-        tjs=padded(tjs) if curv else None,
-        rtab_aks=rtab_aks,
-        interpret=interpret)
-    if curv:
-        (xo, yo, zo, sto, spolo, salo, temo, hitl, hitb, oob,
-         tio, tjo) = res
-        tio, tjo = tio[:n], tjo[:n]
-    else:
-        (xo, yo, zo, sto, spolo, salo, temo, hitl, hitb, oob) = res
-    xo, yo, zo = xo[:n], yo[:n], zo[:n]
-    sto, hitl, hitb, oob = sto[:n], hitl[:n], hitb[:n], oob[:n]
-    spolo, salo, temo = spolo[:n], salo[:n], temo[:n]
-    if os.environ.get("LTJAX_DEBUG_OOB"):
-        jax.debug.print("oob t0={t} n_oob={o}", t=t0, o=jnp.sum(oob))
-
-    tt_end = jnp.asarray(t0 + n_int * idt, p.x.dtype)
-    age = jnp.where(sto >= st.ACTIVE, tt_end - p.dob, p.age)
-    hit_land = p.hit_land + hitl if cfg.TrackCollisions else p.hit_land
-    hit_bottom = p.hit_bottom + hitb if cfg.TrackCollisions else p.hit_bottom
-    out = p._replace(x=xo, y=yo, z=zo, age=age, status=sto,
-                     settle_poly=spolo, salt=salo, temp=temo,
-                     hit_land=hit_land, hit_bottom=hit_bottom)
-
-    # --- exact recompute of out-of-window particles ----------------------
-    # Only the first ``cap`` flagged particles are recomputed (static
-    # shapes); any beyond that — never observed below ~2% oob, cap is
-    # ~1.6% — are flagged ERROR, visible in the status counts and fatal
-    # under ErrorFlag=0.  (A lax.cond full-batch fallback would get its
-    # HBM budgeted at compile time: 4x N x 189 gather temps OOM'd the
-    # chip at 10M particles.)
-    frac = (cfg.oob_frac if cfg.oob_frac > 0
-            else resolve_oob_frac(cfg, ctx))
-    cap = min(n, max(256, n // frac))
-    # Patch interpolation mode: "records" gathers ~3x the rows per
-    # particle (3 raw records per stage) but builds nothing grid-sized;
-    # "collapsed" pays stage-table builds (O(grid cells x HL)
-    # bandwidth) to gather 3x less.  Row gathers run at a fixed row
-    # rate on v5e (BASELINE.md), so collapsed wins once the capacity is
-    # large relative to the grid.  When the full per-ext-step stage
-    # stack fits comfortably in HBM, build ALL 2*n_int+1 tables ONCE
-    # (stage_value_tables_all) and dynamic-slice per step — the
-    # in-scan builds were ~2/3 of the patch cost (52.6 -> ~25 ms per
-    # external step measured at 1M/cap 15.6k on the 200x200 grid).
-    patch_collapsed = cap * 24 > 4 * grid.ny * grid.nx
-    HLv = ((pk.n_value_lanes(grid.us, grid.ws)
-            + (grid.ws if prec.with_aks else 0)
-            + (2 * grid.us if prec.with_scalars else 0)
-            + 127) // 128) * 128
-    pre_bytes = (2 * n_int + 1) * grid.ny * grid.nx * HLv * 4
-    patch_pre = patch_collapsed and pre_bytes < 2.5e9
-    if patch_pre:
-        vt_all = pk.stage_value_tables_all(grid, prec, t0, idt, n_int)
-    else:
-        prec_sub = (prec if patch_collapsed
-                    else pk.build_records_flat(grid, prec))
-    patch_mode = "collapsed" if patch_collapsed else "records"
-
-    def run_subset(pp: st.Particles) -> st.Particles:
-        def body(carry, i):
-            t = t0 + i * idt
-            if patch_pre:
-                # NOTE: the slice-free "collapsed_all" form (gathering
-                # at a stage row offset into the stacked tables) was
-                # measured 2.6x SLOWER end-to-end at 1M: row gathers
-                # from the ~625 MB stacked operand fall off the fixed
-                # row-rate cliff (BASELINE.md microarch: >=100 MB
-                # operands gather at ~0.19 G rows/s and worse), so the
-                # ~60 MB/step dynamic-slice copies are the cheaper
-                # trade.  Keep collapsed_tabs.
-                tabs = pk.slice_stage_tables(vt_all, i)
-                return internal_step(ctx, cfg, base_key, carry, fields,
-                                     t, ext_idx * n_int + i, tabs,
-                                     mode="collapsed_tabs"), None
-            return internal_step(ctx, cfg, base_key, carry, fields, t,
-                                 ext_idx * n_int + i, prec_sub,
-                                 mode=patch_mode), None
-        p2, _ = jax.lax.scan(body, pp, jnp.arange(n_int))
-        return p2
-
-    rank = jnp.cumsum(oob.astype(jnp.int32)) - 1
-    overflow = oob & (rank >= cap)
-    n_oob = rank[-1] + 1
-    idxs = jnp.nonzero(oob, size=cap, fill_value=n)[0]
-    # fill_value=n is out of bounds on purpose: gathers clamp (the
-    # clamped row's value is never used) and scatters DROP — the
-    # previous concatenate-a-sentinel-slot scheme copied every (n,)
-    # array twice per field (24 full-batch copies, measured 14 ms/ext
-    # at 1M — benchmarks/patch_anatomy.py)
-    #
-    # The patch runs in CHUNKS: the first chunk is sized to the steady
-    # window-miss demand; tail chunks are lax.cond-gated on the ACTUAL
-    # miss count, so the steady state pays only for the misses it has
-    # while the full static capacity stays available for transit /
-    # settlement load peaks (patch scan cost is proportional to the
-    # compacted subset size — benchmarks/patch_anatomy.py measured the
-    # cap-sized scan at ~50 ms/ext at 1M with ~40% of slots unused).
-    chunk = max(256, min(cap, -(-2 * n) // (3 * 64)))  # ~1.04% of n
-    bounds_lo = list(range(0, cap, chunk))
-
-    fields_of = ("x", "y", "z", "age", "status", "settle_poly", "salt",
-                 "temp", "hit_land", "hit_bottom")
-
-    def patch_chunk(out_p, lo, hi):
-        ic = jax.lax.slice_in_dim(idxs, lo, hi)
-        sub0 = jax.tree.map(lambda a: a.at[ic].get(mode="clip"), p)
-        sub = run_subset(sub0)
-
-        def scat(dst, src):
-            return dst.at[ic].set(src, mode="drop")
-
-        return out_p._replace(**{f: scat(getattr(out_p, f),
-                                         getattr(sub, f))
-                                 for f in fields_of})
-
-    for lo in bounds_lo:
-        hi = min(lo + chunk, cap)
-        if lo == 0:
-            out = patch_chunk(out, lo, hi)     # first chunk always runs
-        else:
-            out = jax.lax.cond(n_oob > lo,
-                               lambda o, lo=lo, hi=hi: patch_chunk(
-                                   o, lo, hi),
-                               lambda o: o, out)
-    out = out._replace(status=jnp.where(overflow, st.ERROR, out.status))
-    if curv:
-        # refresh the carried logical coordinates of the patched
-        # subset from their exact (patched) positions — a cap-sized
-        # seed-raster Newton, cheap next to the full-batch one
-        xs = out.x.at[idxs].get(mode="clip")
-        ys = out.y.at[idxs].get(mode="clip")
-        tfi, tfj = logical_coords(grid, xs, ys)
-        tio = tio.at[idxs].set(tfi.astype(jnp.float32), mode="drop")
-        tjo = tjo.at[idxs].set(tfj.astype(jnp.float32), mode="drop")
-        return out, tio, tjo
-    return out
 
 
 def summary_counts(p: st.Particles):

@@ -115,8 +115,7 @@ def make_solid_body_case(nx=41, ny=41, us=10, lx=100e3, ly=100e3,
     # Cs = s for uniform levels (theta_s = 0); hc=h0 makes Vtransform-1
     # z = h*s exactly (z0 = hc*s + (h-hc)*Cs = h*s when hc=h0, Cs=s).
     # theta_s > 0 gives a genuinely stretched ladder (Cs != s, hc != 0)
-    # — grid.affine_ladders is None and the kernels take the
-    # per-particle z-space vertical scheme (coverage for that path).
+    # (coverage for the general z-space vertical knots).
     return SolidBodyCase(grid=grid, omega=omega, xc=lx / 2, yc=ly / 2,
                          shear_a=shear_a, ramp_b=ramp_b, h0=h0)
 
@@ -310,9 +309,8 @@ def fieldset_for(case: SolidBodyCase, t_center: float, dt: float,
 
 def fieldset_window(case: SolidBodyCase, t_first: float, dt: float,
                     n_records: int, dtype=None):
-    """FieldSet with ``n_records`` records at t_first + k*dt — the
-    (n_fuse + 2)-record window consumed by
-    ltjax.step.make_fused_external_steps."""
+    """FieldSet with ``n_records`` records at t_first + k*dt (external
+    step e of a run reads records [e, e+1, e+2])."""
     import jax.numpy as jnp
     from .fields import make_fieldset
     if dtype is None:

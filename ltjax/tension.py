@@ -17,7 +17,7 @@ Everything is batched over arbitrary leading axes and jit/vmap-safe:
 knots may differ per batch element (each particle's water column has
 its own z-levels).  The tridiagonal solve is a Thomas-algorithm
 ``lax.scan`` over the ~20 vertical levels with the particle batch
-vectorized — the TPU-friendly layout.
+vectorized.
 
 Interval form used everywhere below (h = x_{j+1}-x_j, B2 = (x-x_j)/h,
 B1 = 1-B2, u = tension):
@@ -29,7 +29,7 @@ B1 = 1-B2, u = tension):
   ds(u,B) = (1 - u*cosh(u*B)/sinh(u)) / u^2   -> 1/6 - B^2/2 as u->0
 
 Small-u branches use series accurate to O(u^6) so the implementation is
-stable in float32 on TPU.
+stable in float32.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def _u_small(dtype):
 
     The exact branch loses ~eps/u^2 relative accuracy to cancellation,
     so the crossover is dtype-aware: tight for f64 (the series is
-    near-machine-accurate there), wide for f32 on TPU.
+    near-machine-accurate there), wide for f32.
     """
     return 0.02 if jnp.finfo(dtype).bits >= 64 else 0.5
 
@@ -120,7 +120,7 @@ def _thomas(dl, d, du, b):
     axis is the small vertical-level count (~20), so it is UNROLLED:
     XLA fuses the whole recurrence into a few kernels over the big
     batch axes, instead of a 2n-step sequential scan that materializes
-    every carry (the scan variant measured ~an order slower on TPU).
+    every carry.
     """
     n = d.shape[-1]
     if n > 64:  # fall back to scan for unusually deep columns
@@ -216,10 +216,8 @@ def _interval_index(xk, x):
 def _gather_intervals(x, xk, arrs):
     """Select per-query interval endpoints WITHOUT a lane gather.
 
-    ``take_along_axis`` over the minor (lane) axis is a per-lane
-    dynamic gather — unsupported in TPU hardware and lowered to
-    something serialized; it dominated the whole engine's profile.
-    Instead build the one-hot interval mask (..., n-1) once and reduce
+    ``take_along_axis`` over the minor axis is a per-element dynamic
+    gather.  Instead build the one-hot interval mask (..., n-1) once and reduce
     each requested (left, right) endpoint pair with multiplies+sums —
     pure VPU work.
 

@@ -4,7 +4,7 @@ trajectories vs analytic truth, boundaries, and IO round-trip.
 Reference analog: general curvilinear Arakawa-C grids handled by
 ``initGrid``/``setEle``/``gridcell()`` (hydrodynamic_module.f90 /
 gridcell_module.f90, SURVEY.md SS2.1 #3/#4 [conf: H]) — the bundled
-estuary case runs on one.  The TPU-native replacement is a precomputed
+estuary case runs on one.  The replacement here is a precomputed
 seed raster + Newton inverse of the per-cell bilinear map
 (ltjax.grid.logical_coords, SURVEY.md SS7.1).
 """
@@ -79,8 +79,7 @@ def test_packed_matches_native_curvilinear(curv_case):
 
     p_nat = internal_step(ctx, cfg, key, p, fs, 100.0, 0, None)
     prec = pk.build_packed_records(g, fs)
-    p_fast = internal_step(ctx, cfg, key, p, fs, 100.0, 0, prec,
-                           mode="packed")
+    p_fast = internal_step(ctx, cfg, key, p, fs, 100.0, 0, prec)
     # On a curved mesh the packed path's u/v collocation to rho points
     # (documented scheme choice, ltjax.packed item 3) and the native
     # staggered-mesh bilinear sample effective positions O(h^2 *
@@ -109,7 +108,7 @@ def test_trajectories_match_analytic_curvilinear(curv_case):
     ctx = StepContext(grid=g, bounds=bounds, polys=None, holes=None)
     cfg = Config(numpar=100, dt=3600, idt=300, us=8, ws=9,
                  OpenOceanBoundary=True)
-    assert mode_flags(ctx, cfg)[0]          # packed path engages
+    assert mode_flags(cfg) == "fast"       # packed path engages
     rng = np.random.default_rng(2)
     n = 100
     x0 = rng.uniform(35e3, 65e3, n)
@@ -292,73 +291,6 @@ def test_curvilinear_cli_driver_end_to_end(tmp_path):
     assert err.max() < 20.0, err.max()
 
 
-def test_curv_fused_driver_matches_collapsed_scan(curv_case):
-    """The full fused curvilinear driver (make_fused_external_steps:
-    megakernel + ti/tj carry + exact patch + sort/unsort) over two
-    external steps vs the pure collapsed-mode XLA scan.  Every particle
-    must agree — deferred/oob particles go through the patch, which IS
-    the collapsed scan, so this pins the whole dispatch machinery."""
-    import jax.random as jr
-    from ltjax import packed as pk
-    from ltjax import state as st
-    from ltjax.config import Config
-    from ltjax.fields import FieldSet
-    from ltjax.step import (StepContext, internal_step,
-                            make_fused_external_steps)
-
-    dtype = jnp.float32
-    g = curv_case.grid
-    bounds = bd.build_boundaries_curv(np.asarray(g.mask_rho),
-                                      curv_case.x2d, curv_case.y2d,
-                                      g.curv)
-    ctx = StepContext(grid=g, bounds=bounds, polys=None, holes=None)
-    cfg = Config(numpar=512, dt=1800, idt=450, us=8, ws=9,
-                 OpenOceanBoundary=True, dtype_pos="float32",
-                 reflect_iters=2, kernel_precision="pair2",
-                 # full-capacity patch: at this test density (2
-                 # particles/cell) most blocks miss their windows —
-                 # the point here is the DISPATCH machinery, not the
-                 # miss rate (the 1M bench density-matches for that)
-                 kernel_block=256, oob_frac=1)
-    fsR = synth.fieldset_window(curv_case, -900.0, 1800.0, 4,
-                                dtype=dtype)
-    rng = np.random.default_rng(7)
-    n = cfg.numpar
-    p0 = st.init_particles(rng.uniform(30e3, 70e3, n),
-                           rng.uniform(30e3, 70e3, n),
-                           rng.uniform(-40.0, -5.0, n), dtype=dtype)
-    p0 = p0._replace(status=jnp.full(n, st.ACTIVE, jnp.int32))
-
-    fused = make_fused_external_steps(ctx, cfg, jr.key(0), 2,
-                                      interpret=True)
-    out = fused(p0, fsR, 0.0, 0)
-
-    pp = p0
-    n_int = cfg.internal_steps
-    for e in range(2):
-        fs3 = FieldSet(*(a[e:e + 3] for a in fsR[:-1]),
-                       times=fsR.times[e:e + 3])
-        prec = pk.build_packed_records(g, fs3)
-        for ii in range(n_int):
-            pp = internal_step(ctx, cfg, jr.key(0), pp, fs3,
-                               e * float(cfg.dt) + ii * float(cfg.idt),
-                               e * n_int + ii, prec, mode="collapsed")
-
-    o = np.argsort(np.asarray(out.pid))
-    r = np.argsort(np.asarray(pp.pid))
-    ok = np.asarray(pp.status)[r] == st.ACTIVE
-    assert ok.sum() > 0.9 * n
-    np.testing.assert_array_equal(np.asarray(out.status)[o],
-                                  np.asarray(pp.status)[r])
-    np.testing.assert_allclose(np.asarray(out.x)[o][ok],
-                               np.asarray(pp.x)[r][ok], rtol=0, atol=1.0)
-    np.testing.assert_allclose(np.asarray(out.y)[o][ok],
-                               np.asarray(pp.y)[r][ok], rtol=0, atol=1.0)
-    np.testing.assert_allclose(np.asarray(out.z)[o][ok],
-                               np.asarray(pp.z)[r][ok], rtol=0,
-                               atol=2e-3)
-
-
 def test_curv_dp_sharded_matches_unsharded(curv_case):
     """VERDICT r4 missing #2: curvilinear runs are no longer excluded
     from the sharded driver — particle-DP sharding (mesh_particles = N,
@@ -408,61 +340,3 @@ def test_curv_dp_sharded_matches_unsharded(curv_case):
                                rtol=0, atol=1e-8)
     np.testing.assert_allclose(np.asarray(out.z)[o], np.asarray(ref.z)[r],
                                rtol=0, atol=1e-10)
-
-
-@pytest.mark.parametrize("behavior", [1, 3])
-def test_curv_megakernel_swimming_behaviors(curv_case, behavior):
-    """Round-5 widening: the curvilinear megakernel covers the
-    salt-free swimming behaviors (zone-biased walks, DVM) — fused
-    driver (interpret) vs the collapsed XLA scan, statuses exact."""
-    import jax.random as jr
-    from ltjax import packed as pk
-    from ltjax import state as st
-    from ltjax.config import Config
-    from ltjax.fields import FieldSet
-    from ltjax.step import (StepContext, internal_step,
-                            make_fused_external_steps)
-
-    dtype = jnp.float32
-    g = curv_case.grid
-    bounds = bd.build_boundaries_curv(np.asarray(g.mask_rho),
-                                      curv_case.x2d, curv_case.y2d,
-                                      g.curv)
-    ctx = StepContext(grid=g, bounds=bounds, polys=None, holes=None)
-    cfg = Config(numpar=512, dt=1800, idt=450, us=8, ws=9,
-                 OpenOceanBoundary=True, dtype_pos="float32",
-                 reflect_iters=2, kernel_precision="pair2",
-                 Behavior=behavior, swimslow=1e-3, swimfast=3e-3,
-                 pediage=5e6, mortality=True, deadage=5e6,
-                 kernel_block=256, oob_frac=1)
-    fsR = synth.fieldset_window(curv_case, -900.0, 1800.0, 3,
-                                dtype=dtype)
-    rng = np.random.default_rng(7)
-    n = cfg.numpar
-    p0 = st.init_particles(rng.uniform(30e3, 70e3, n),
-                           rng.uniform(30e3, 70e3, n),
-                           rng.uniform(-40.0, -5.0, n), dtype=dtype)
-    p0 = p0._replace(status=jnp.full(n, st.ACTIVE, jnp.int32))
-
-    fused = make_fused_external_steps(ctx, cfg, jr.key(0), 1,
-                                      interpret=True)
-    out = fused(p0, fsR, 0.0, 0)
-
-    pp = p0
-    fs3 = FieldSet(*(a[:3] for a in fsR[:-1]), times=fsR.times[:3])
-    prec = pk.build_packed_records(g, fs3)
-    for ii in range(cfg.internal_steps):
-        pp = internal_step(ctx, cfg, jr.key(0), pp, fs3,
-                           ii * float(cfg.idt), ii, prec,
-                           mode="collapsed")
-
-    o = np.argsort(np.asarray(out.pid))
-    r = np.argsort(np.asarray(pp.pid))
-    np.testing.assert_array_equal(np.asarray(out.status)[o],
-                                  np.asarray(pp.status)[r])
-    ok = np.asarray(pp.status)[r] == st.ACTIVE
-    np.testing.assert_allclose(np.asarray(out.x)[o][ok],
-                               np.asarray(pp.x)[r][ok], rtol=0, atol=1.0)
-    np.testing.assert_allclose(np.asarray(out.z)[o][ok],
-                               np.asarray(pp.z)[r][ok], rtol=0,
-                               atol=2e-3)

@@ -177,22 +177,21 @@ def test_two_process_run_matches_single_process(tmp_path):
                                                  for c in cks), cks
 
     # --- merge shards and compare with the single-process file ---------
-    import h5py
+    from ltjax.io.nc import NCFile
     from ltjax.out.writer import merge_shards
 
     merged = os.path.join(root, "merged.nc")
     merge_shards(shard_files, merged)
-    with h5py.File(os.path.join(out1, "mh.nc"), "r") as a, \
-            h5py.File(merged, "r") as b:
-        np.testing.assert_allclose(np.asarray(b["model_time"]),
-                                   np.asarray(a["model_time"]))
-        pa = np.asarray(a["pid"])
-        pb = np.asarray(b["pid"])
+    with NCFile(os.path.join(out1, "mh.nc")) as a, NCFile(merged) as b:
+        np.testing.assert_allclose(b.read("model_time"),
+                                   a.read("model_time"))
+        pa = a.read("pid")
+        pb = b.read("pid")
         np.testing.assert_array_equal(np.sort(pa), pb)
         oa = np.argsort(pa)
         for name in ("lon", "lat", "depth", "color", "age"):
-            va = np.asarray(a[name])[:, oa]
-            vb = np.asarray(b[name])
+            va = a.read(name)[:, oa]
+            vb = b.read(name)
             if name == "color":
                 np.testing.assert_array_equal(vb, va)
             else:

@@ -4,6 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import jax.random as jr
+import pytest
 
 from ltjax import state as st
 from ltjax import synth
@@ -130,35 +131,54 @@ def test_step_clean_under_debug_nans():
     assert np.isfinite(np.asarray(p1.z)).all()
 
 
-def test_resolve_kernel_block_and_capacity_density_rules():
-    """Auto-tuning rules (round 5): kernel blocks sized to ~41 cells of
-    particle density (sparse runs floor at 256 — the fixed 1024 made a
-    5/cell production run error 91% of its particles), and sparse runs
-    get the n/16 patch-capacity tier."""
-    import numpy as np
-    from ltjax import synth
-    from ltjax.config import Config
-    from ltjax.physics import boundary as bd
-    from ltjax.step import (StepContext, resolve_kernel_block,
-                            resolve_oob_frac)
+@pytest.mark.parametrize("kw,path", [
+    (dict(), "fast"),
+    (dict(fast_interp=False), "native"),
+    (dict(tension_sigma=-1.0), "native"),
+    (dict(tension_sigma=4.0, dtype_pos="float32"), "fast"),
+])
+def test_mode_flags_decides_from_the_config_alone(monkeypatch, kw, path):
+    """The compute path never depends on the backend JAX runs on."""
+    def no_backend(*a, **k):
+        raise AssertionError("mode_flags consulted the backend")
 
-    case = synth.make_solid_body_case(nx=200, ny=200, us=4, lx=200e3,
-                                      ly=200e3, h0=50.0, omega=5e-5)
-    bounds = bd.build_boundaries(np.asarray(case.grid.mask_rho),
-                                 np.asarray(case.grid.x_rho),
-                                 np.asarray(case.grid.y_rho))
-    ctx = StepContext(grid=case.grid, bounds=bounds, polys=None,
-                      holes=None)
-    # bench density (25/cell) -> the production 1024 block
-    assert resolve_kernel_block(Config(numpar=1_000_000), ctx) == 1024
-    # 10M clamps at 1024
-    assert resolve_kernel_block(Config(numpar=10_000_000), ctx) == 1024
-    # sparse (5/cell) -> floor 256
-    assert resolve_kernel_block(Config(numpar=200_000), ctx) == 256
-    # explicit override wins
-    assert resolve_kernel_block(Config(numpar=200_000,
-                                       kernel_block=512), ctx) == 512
-    # sparse capacity tier: 200k at 5/cell -> n/16
-    assert resolve_oob_frac(Config(numpar=200_000), ctx) == 16
-    # dense advect keeps the n/64 base
-    assert resolve_oob_frac(Config(numpar=1_000_000), ctx) == 64
+    monkeypatch.setattr(jax, "default_backend", no_backend)
+    monkeypatch.setattr(jax, "devices", no_backend)
+    from ltjax.step import mode_flags
+    assert mode_flags(Config(**kw)) == path
+
+
+def test_package_imports_no_pallas():
+    """Nothing in the package imports a Pallas kernel module."""
+    import ast
+    import pathlib
+
+    import ltjax
+
+    bad = []
+    for f in pathlib.Path(ltjax.__file__).parent.rglob("*.py"):
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}"
+                                         for a in node.names]
+            bad += [f"{f.name}: {n}" for n in names
+                    if "pallas" in n]
+    assert not bad, bad
+
+
+def test_run_logs_path_and_device_first(tmp_path, capsys):
+    """The CLI's first JSON line names the compute path and the device."""
+    import json
+
+    import chip_smoke
+    from ltjax import run as ltrun
+
+    _, nml, _, _, _ = chip_smoke.write_case(str(tmp_path), 16, 16, 4, 64, 1)
+    assert ltrun.main([nml]) == 0
+    first = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert first["event"] == "start" and first["path"] == "fast"
+    assert first["device"] == {"platform": "cpu", "kind": "cpu",
+                               "count": len(jax.devices())}

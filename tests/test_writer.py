@@ -1,4 +1,4 @@
-"""Trajectory writer: streaming NetCDF(HDF5) appends + vectorized CSV.
+"""Trajectory writer: streaming NetCDF3 appends + vectorized CSV.
 
 Reference: writeOutput (LTRANS.f90, SURVEY.md SS3.4) appends snapshots
 incrementally every iprint; the writer must do the same with O(1) host
@@ -113,3 +113,49 @@ def test_merge_shards_union_and_empty_first_snapshot(tmp_path):
     assert color.shape == (3, 3)
     # pid 11 absent before snapshot 2 -> zero-filled rows, present after
     assert color[2, list(pids).index(11)] == 1
+
+
+@pytest.fixture
+def no_h5py(monkeypatch):
+    """Make ``import h5py`` fail, as on a machine without it."""
+    import sys
+    monkeypatch.setitem(sys.modules, "h5py", None)
+
+
+@pytest.mark.parametrize("tag", ["", "_h000"])
+def test_writer_and_merge_round_trip_without_h5py(tmp_path, particles,
+                                                  no_h5py, tag):
+    """Trajectory files are NetCDF3 64-bit offset (CDF-2), written and
+    merged with scipy alone, and read back value for value."""
+    from ltjax.out.writer import merge_shards
+
+    cfg = Config(outpath=str(tmp_path), NCOutFile="t", writeNC=True,
+                 writeCSV=False, SaltTempOn=True, SphericalProjection=False)
+    w = TrajectoryWriter(cfg, shard_tag=tag)
+    moved = particles._replace(z=particles.z - 1.0)
+    for k, p in enumerate((particles, moved, particles)):
+        w.snapshot(k * 60.0, p)
+    w.close()
+    path = os.path.join(str(tmp_path), f"t{tag}.nc")
+    with open(path, "rb") as f:
+        assert f.read(4) == b"CDF\x02"
+    if tag:
+        merged = os.path.join(str(tmp_path), "merged.nc")
+        merge_shards([path], merged)
+        path = merged
+    with NCFile(path) as f:
+        np.testing.assert_array_equal(f.read("pid"),
+                                      np.arange(particles.n))
+        np.testing.assert_allclose(f.read("model_time"), [0.0, 60.0, 120.0])
+        depth = f.read("depth")
+        np.testing.assert_array_equal(depth[1], np.asarray(moved.z))
+        np.testing.assert_array_equal(depth[2], np.asarray(particles.z))
+        assert f.read("color").dtype == np.int32
+        assert f.read("salt").shape == (3, particles.n)
+
+
+def test_netcdf4_input_names_h5py_when_missing(tmp_path, no_h5py):
+    path = tmp_path / "hist.nc"
+    path.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
+    with pytest.raises(ImportError, match="h5py"):
+        NCFile(str(path))
